@@ -5,18 +5,33 @@
 Phases, each of which exits non-zero when it fails:
 1. toolchain: torch, CUDA, the card's name and power limit, nvcc, g++,
    triton, pyarrow;
-2. build: the CUDA kernels from sequila_tpu_torch/csrc with nvcc for sm_90a,
-   printing ``-Xptxas -v``;
+2. build: the CUDA kernels from sequila_tpu_torch/csrc with nvcc for sm_90a
+   (one nvcc a source, in parallel), printing ``-Xptxas -v``;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, exact integer equality, on random sorted u32 tables with duplicate
-   runs, both sentinels, both ``strict`` values, lengths that are not a
-   multiple of the block and an empty table, up to the genome shapes;
+   card, exact integer equality.  merge_rank_sorted and pack_view on random
+   sorted u32 tables with duplicate runs, both sentinels, both ``strict``
+   values, ragged lengths and an empty table, up to the genome shapes;
+   stream_rank_sorted (B2) and rank_sorted_resident (B3) on random sorted
+   (key, value) builds with duplicate runs across chunks and PAD tails,
+   both ``strict`` values, B2 up to the genome shapes and B3 up to its
+   2^20-row cap with 2.35 M queries, each also against one global
+   torch.searchsorted rank (which a bad window would miss);
 4. main path: ``SessionContext(device="cuda").sql(count(*) overlap join)``
    on the synthetic databio chr1 pair and on the whole-genome pair, checked
-   against the known counts and an independent numpy BITS count; every
-   kernel's launch counter must rise; warm query time and each kernel's
-   time against its plain version (CUDA events), beside the card's name
-   and power limit;
+   against the known counts and an independent numpy BITS count; the merge
+   route must answer and its kernels' launch counters rise;
+4b. the other count backends on both pairs: SEQUILA_COUNT_BACKEND=stream
+   (B2's counter must rise) and =cosort (no B1 or B2 launch), the same
+   counts, each route asserted through the operator's route metric;
+4c. the level loop at full size: the genome pair with 1 % zero-length probe
+   rows under the half-open query (degenerate after the planner's end - 1),
+   under Coitrees (sort) and IntervalTree (bsearch), against the native C++
+   host index over the same columns;
+4d. B3's entry point ``rank_lex_resident`` at its cap (2^20-row build,
+   2.35 M queries) against ``rank_lex_sort``;
+   then the warm time of every route on the genome pair and each kernel's
+   time against its plain version (CUDA events, turns plain, kernel,
+   kernel, plain), beside the card's name and power limit;
 5. the q1 fixture through the port's CLI (host route), expecting 16.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -38,7 +53,29 @@ CHR1_EXPECTED = 153_690_858
 GENOME_EXPECTED = 99_159_827
 Q1_EXPECTED = 16
 WARM_QUERIES = 10
+LEVEL_WARM_QUERIES = 3
 TIMED_LAUNCHES = 20
+ZERO_LENGTH_SHARE = 0.01
+HALF_OPEN_QUERY = (
+    "SELECT count(1) FROM s1 a JOIN s2 b ON a.contig = b.contig "
+    "AND a.pos_start < b.pos_end AND a.pos_end > b.pos_start"
+)
+# phase 3 shapes: B1 (table rows N, query rows M): an empty table, ragged
+# M, the chr1 and genome padded view shapes in both directions; pack_view
+# (rows, keys); B2 (real build rows, real queries): the pairs' own sizes in
+# both directions; B3 (build rows, queries) up to its cap
+B1_SHAPES = [(0, 300), (1, 1), (2048, 1000), (5000, 257), (303_104, 208_896),
+             (7_684_096, 2_351_104), (2_351_104, 7_684_096)]
+PACK_SHAPES = [(0, 1), (1000, 3), (1_000_003, 24), (7_684_096, 24)]
+B2_SHAPES = [(0, 300), (1, 1), (5000, 257), (207_146, 302_381),
+             (2_350_965, 7_684_066), (7_684_066, 2_350_965)]
+B3_SHAPES = [(2048, 1000), (6144, 257), (303_104, 208_896), (1 << 20, 2_351_104)]
+KERNELS = {  # name: (source, TPU kernel it replaces)
+    "merge_rank_sorted": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:110"),
+    "pack_view": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:158"),
+    "stream_rank_sorted": ("stream_rank.cu", "sequila_tpu/ops/pallas/stream_rank.py:86"),
+    "rank_sorted_resident": ("rank_kernel.cu", "sequila_tpu/ops/pallas/rank_kernel.py:126"),
+}
 
 
 def fail(msg: str) -> None:
@@ -98,23 +135,46 @@ def sorted_u32(rng, n, torch, dev):
     return torch.from_numpy(vals.view(np.int32).copy()).to(dev)
 
 
+def sorted_pairs(rng, n, size, nkeys, torch, dev):
+    """(keys, values) sorted lexicographically on the card, padded with
+    (PAD, PAD) to ``size`` rows: a few keys, half the values from a narrow
+    range (duplicate runs longer than a chunk), the rest over all of int32."""
+    from sequila_tpu_torch.ops.cuda.stream_rank import sorted_padded
+
+    k = rng.integers(-1, nkeys, n).astype(np.int32)
+    v = rng.integers(-(2**31), 2**31 - 1, n, dtype=np.int64).astype(np.int32)
+    v[: n // 2] = rng.integers(-40, 40, n // 2)
+    ks, vs, _ = sorted_padded(torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev), size)
+    return ks, vs
+
+
+def max_diff(torch, got, want) -> int:
+    if got.numel() == 0:
+        return 0
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def global_rank(torch, a_k, a_v, q_k, q_v, strict):
+    from sequila_tpu_torch.ops.ranks import composite
+
+    return torch.searchsorted(composite(a_k, a_v), composite(q_k, q_v), right=not strict)
+
+
 def phase_kernels(torch, dev) -> dict:
     print("== phase 3: kernels vs plain (exact)", flush=True)
     from sequila_tpu_torch.ops.cuda import merge_count as mc
+    from sequila_tpu_torch.ops.cuda import rank_kernel as rk
+    from sequila_tpu_torch.ops.cuda import stream_rank as sr
 
     rng = np.random.default_rng(0)
-    err = {"pack_view": 0, "merge_rank_sorted": 0}
-    # (table rows N, query rows M): empty table, ragged M, chr1 and genome
-    # padded view shapes in both directions
-    shapes = [(0, 300), (1, 1), (2048, 1000), (5000, 257), (303_104, 208_896),
-              (7_684_096, 2_351_104), (2_351_104, 7_684_096)]
-    for n, m in shapes:
+    err = dict.fromkeys(KERNELS, 0)
+    for n, m in B1_SHAPES:
         a = sorted_u32(rng, n, torch, dev)
         q = sorted_u32(rng, m, torch, dev)
         for strict in (True, False):
             got = mc.merge_rank_sorted(a, q, strict=strict)
             want = mc.merge_rank_plain(a, q, strict=strict)
-            d = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if m else 0
+            d = max_diff(torch, got, want)
             s_got = int(mc.merge_rank_sorted(a, q, strict=strict, reduce=True))
             s_want = int(mc.merge_rank_plain(a, q, strict=strict, reduce=True))
             err["merge_rank_sorted"] = max(err["merge_rank_sorted"], d, abs(s_got - s_want))
@@ -122,7 +182,7 @@ def phase_kernels(torch, dev) -> dict:
                 fail(f"merge_rank_sorted N={n} M={m} strict={strict}: "
                      f"max |diff| {d}, sums {s_got} vs {s_want}")
         print(f"merge_rank_sorted N={n} M={m}: ranks and sums equal for strict=True/False")
-    for n, nkeys in ((0, 1), (1000, 3), (1_000_003, 24), (7_684_096, 24)):
+    for n, nkeys in PACK_SHAPES:
         k_h = rng.integers(0, nkeys, n).astype(np.int32)
         k_h[rng.random(n) < 0.01] = 2**31 - 1  # PAD rows
         k = torch.from_numpy(k_h)
@@ -139,17 +199,63 @@ def phase_kernels(torch, dev) -> dict:
             if d:
                 fail(f"pack_view n={n} pad={pad:#x}: max |diff| {d}")
         print(f"pack_view n={n} keys={nkeys}: equal for both sentinels")
+
+    # B2: builds pad to CHUNK, queries to BLOCK for the windows, and the
+    # kernel gets the queries ragged
+    for n, m in B2_SHAPES:
+        a_k, a_v = sorted_pairs(rng, n, -(-n // sr.CHUNK) * sr.CHUNK, 24, torch, dev)
+        q_k, q_v = sorted_pairs(rng, m, -(-m // sr.BLOCK) * sr.BLOCK, 25, torch, dev)
+        c_lo, n_ch = sr.device_windows(a_k, a_v, q_k, q_v)
+        a2 = torch.stack([a_k, a_v])
+        q_k, q_v = q_k[:m], q_v[:m]
+        for strict in (True, False):
+            args = (a2, c_lo, n_ch, q_k, q_v)
+            got = sr.stream_rank_sorted(*args, strict=strict)
+            want = sr.stream_rank_plain(*args, strict=strict)
+            d = max(max_diff(torch, got, want),
+                    max_diff(torch, got, global_rank(torch, a_k, a_v, q_k, q_v, strict)))
+            s_got = int(sr.stream_rank_sorted(*args, strict=strict, reduce=True))
+            s_want = int(sr.stream_rank_plain(*args, strict=strict, reduce=True))
+            err["stream_rank_sorted"] = max(err["stream_rank_sorted"], d, abs(s_got - s_want))
+            if d or s_got != s_want:
+                fail(f"stream_rank_sorted n={n} m={m} strict={strict}: "
+                     f"max |diff| {d}, sums {s_got} vs {s_want}")
+        print(f"stream_rank_sorted n={n} m={m} (windows of up to {int(n_ch.max()) if m else 0} "
+              f"chunks): ranks, sums and the global rank equal for strict=True/False")
+
+    for n_pad, m in B3_SHAPES:
+        a_k, a_v = sorted_pairs(rng, n_pad - 5, n_pad, 24, torch, dev)
+        q_k, q_v = sorted_pairs(rng, m, m, 25, torch, dev)
+        for strict in (True, False):
+            args = (a_k, a_v, q_k, q_v)
+            got = rk.rank_sorted_resident(*args, strict=strict)
+            want = rk.rank_resident_plain(*args, strict=strict)
+            d = max_diff(torch, got, want)
+            s_got = int(rk.rank_sorted_resident(*args, strict=strict, reduce=True))
+            s_want = int(rk.rank_resident_plain(*args, strict=strict, reduce=True))
+            err["rank_sorted_resident"] = max(err["rank_sorted_resident"], d, abs(s_got - s_want))
+            if d or s_got != s_want:
+                fail(f"rank_sorted_resident n={n_pad} m={m} strict={strict}: "
+                     f"max |diff| {d}, sums {s_got} vs {s_want}")
+        print(f"rank_sorted_resident n={n_pad} m={m}: ranks and sums equal the global "
+              f"rank for strict=True/False")
     torch.cuda.synchronize()
     return err
+
+
+def joint_codes(t1: dict, t2: dict):
+    """Joint contig codes of two tables (int64 numpy)."""
+    keys = np.unique(np.concatenate([t1["contig"], t2["contig"]]))
+    return np.searchsorted(keys, t1["contig"]), np.searchsorted(keys, t2["contig"])
 
 
 def bits_count(t1: dict, t2: dict) -> int:
     """Independent numpy BITS count of the overlap join t1 x t2 on contig:
     sum over build rows of #{probe start <= end} - #{probe end < start}
     within the same contig, on int64 (contig, value) composites."""
-    keys = np.unique(np.concatenate([t1["contig"], t2["contig"]]))
-    kb = np.searchsorted(keys, t1["contig"]).astype(np.int64) << 32
-    kq = np.searchsorted(keys, t2["contig"]).astype(np.int64) << 32
+    c1, c2 = joint_codes(t1, t2)
+    kb = c1.astype(np.int64) << 32
+    kq = c2.astype(np.int64) << 32
     qs = np.sort(kq | (t2["pos_start"] + 2**31))
     qe = np.sort(kq | (t2["pos_end"] + 2**31))
     ub = np.searchsorted(qs, kb | (t1["pos_end"] + 2**31), side="right")
@@ -173,12 +279,53 @@ def time_events(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_main_path(torch, dev, card: str):
+def reset_launches():
+    from sequila_tpu_torch.ops.cuda import merge_count as mc
+    from sequila_tpu_torch.ops.cuda import rank_kernel as rk
+    from sequila_tpu_torch.ops.cuda import stream_rank as sr
+
+    wrappers = {
+        "merge_rank_sorted": mc.merge_rank_sorted, "pack_view": mc.pack_view,
+        "stream_rank_sorted": sr.stream_rank_sorted,
+        "rank_sorted_resident": rk.rank_sorted_resident,
+    }
+    for w in wrappers.values():
+        w.launches = 0
+    return lambda: {name: w.launches for name, w in wrappers.items()}
+
+
+def route_of(session) -> str:
+    """The count route the session's last query took (its route metric)."""
+    routes = [k for c in session.last_metrics.counters.values() for k in c
+              if k.startswith("count_route_")]
+    if len(routes) != 1:
+        fail(f"expected one count route metric, got {routes}")
+    return routes[0][len("count_route_"):]
+
+
+def count(session, query: str) -> int:
+    return int(session.sql(query).column_np(0)[0])
+
+
+def warm_ms(torch, session, query, expected, n, label, card) -> float:
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        got = count(session, query)
+        ts.append(time.perf_counter() - t0)
+        if got != expected:
+            fail(f"{label}: warm query returned {got}, expected {expected}")
+    med = float(np.median(ts)) * 1e3
+    print(f"{label}: warm median {med:.3f} ms/query over {n} queries, "
+          f"min {min(ts) * 1e3:.3f} ms [{card}]", flush=True)
+    return med
+
+
+def phase_main_path(torch, card):
     print("== phase 4: main path through SessionContext(device='cuda').sql", flush=True)
     import pyarrow as pa
 
     from sequila_tpu_torch import bench_data as bd
-    from sequila_tpu_torch.ops.cuda import merge_count as mc
     from sequila_tpu_torch.session import SessionContext
 
     pairs = [
@@ -195,42 +342,155 @@ def phase_main_path(torch, dev, card: str):
         ctx = SessionContext(device="cuda")
         ctx.register_table("s1", pa.table(t1))
         ctx.register_table("s2", pa.table(t2))
-        sessions.append((name, ctx, expected))
+        sessions.append((name, ctx, expected, t1, t2))
         print(f"{name}: {len(t1['contig'])} x {len(t2['contig'])} rows, "
               f"numpy BITS reference {ref}")
 
-    mc.pack_view.launches = 0
-    mc.merge_rank_sorted.launches = 0
-    for name, ctx, expected in sessions:
-        got = int(ctx.sql(bd.QUERY).column_np(0)[0])
+    launches = reset_launches()
+    for name, ctx, expected, _, _ in sessions:
+        got = count(ctx, bd.QUERY)
         if got != expected:
             fail(f"{name}: port returned {got}, expected {expected}")
+        if route_of(ctx) != "merge":
+            fail(f"{name}: the default backend answered on route {route_of(ctx)}")
     torch.cuda.synchronize()
-    launches = {
-        "pack_view": mc.pack_view.launches,
-        "merge_rank_sorted": mc.merge_rank_sorted.launches,
-    }
-    print(f"main path counts correct; kernel launches in the main path: {launches}")
-    for kname, n in launches.items():
-        if n <= 0:
+    merge_launches = launches()
+    print(f"main path counts correct on the merge route; kernel launches: {merge_launches}")
+    for kname in ("pack_view", "merge_rank_sorted"):
+        if merge_launches[kname] <= 0:
             fail(f"kernel {kname} was not launched by the main path")
+    return sessions, merge_launches
+
+
+def phase_backends(torch, sessions):
+    print("== phase 4b: the stream and cosort count backends", flush=True)
+    from sequila_tpu_torch import bench_data as bd
+
+    out = {}
+    for backend in ("stream", "cosort"):
+        os.environ["SEQUILA_COUNT_BACKEND"] = backend
+        launches = reset_launches()
+        for name, ctx, expected, _, _ in sessions:
+            t0 = time.perf_counter()
+            got = count(ctx, bd.QUERY)
+            cold = time.perf_counter() - t0
+            if got != expected:
+                fail(f"{name} backend={backend}: port returned {got}, expected {expected}")
+            if route_of(ctx) != backend:
+                fail(f"{name} backend={backend}: answered on route {route_of(ctx)}")
+            print(f"{name} backend={backend}: {got} on route {backend}, first query "
+                  f"{cold:.3f} s")
+        torch.cuda.synchronize()
+        out[backend] = launches()
+        print(f"backend={backend}: kernel launches {out[backend]}")
+    del os.environ["SEQUILA_COUNT_BACKEND"]
+    if out["stream"]["stream_rank_sorted"] <= 0:
+        fail("kernel stream_rank_sorted was not launched by the stream route")
+    if out["cosort"]["merge_rank_sorted"] or out["cosort"]["stream_rank_sorted"]:
+        fail(f"the cosort route launched a rank kernel: {out['cosort']}")
+    return out["stream"]
+
+
+def phase_level(torch, sessions, card):
+    print("== phase 4c: the level loop at full size (degenerate probes)", flush=True)
+    import pyarrow as pa
+
+    from sequila_tpu_torch.exec.context import ExecContext
+    from sequila_tpu_torch.native.loader import available
+    from sequila_tpu_torch.ops.host_join import make_host_index
+    from sequila_tpu_torch.session import SessionContext
+
+    _, _, _, t1, t2 = sessions[1]
+    rng = np.random.default_rng(3)
+    ends = t2["pos_end"].copy()
+    zero = rng.random(len(ends)) < ZERO_LENGTH_SHARE
+    ends[zero] = t2["pos_start"][zero]  # zero-length rows (insertions)
+    t2z = dict(t2, pos_end=ends)
+    if not available():
+        fail("the native host library did not build: no independent level check")
+    t0 = time.perf_counter()
+    c1, c2 = joint_codes(t1, t2z)
+    # the half-open predicate, normalized as the planner does: end - 1
+    hidx = make_host_index(c1.astype(np.int32), t1["pos_start"].astype(np.int32),
+                           (t1["pos_end"] - 1).astype(np.int32))
+    want = int(hidx.counts(c2.astype(np.int32), t2z["pos_start"].astype(np.int32),
+                           (ends - 1).astype(np.int32)).sum())
+    print(f"genome pair, {int(zero.sum())} zero-length probe rows: native host index "
+          f"counts {want} in {time.perf_counter() - t0:.2f} s")
+    ctx = SessionContext(device="cuda")
+    ctx.register_table("s1", pa.table(t1))
+    ctx.register_table("s2", pa.table(t2z))
+    times = {}
+    for alg, method in (("Coitrees", "sort"), ("IntervalTree", "bsearch")):
+        ctx.sql(f"SET sequila.interval_join_algorithm = {alg}")
+        t0 = time.perf_counter()
+        got = count(ctx, HALF_OPEN_QUERY)
+        cold = time.perf_counter() - t0
+        if got != want:
+            fail(f"level loop ({alg}): port returned {got}, native host index {want}")
+        if route_of(ctx) != "level":
+            fail(f"level query ({alg}) answered on route {route_of(ctx)}")
+        join = ctx.plan_sql(HALF_OPEN_QUERY).children[0]
+        index = join._prepare(ExecContext(ctx.config), ctx.table("s1"), ctx.table("s2"))[0]
+        print(f"level loop {alg} ({method}): {got} == native host index; "
+              f"{index.num_levels} levels {index.level_sizes}; first query {cold:.3f} s")
+        times[f"level_{method}"] = warm_ms(torch, ctx, HALF_OPEN_QUERY, want,
+                                           LEVEL_WARM_QUERIES, f"level loop {alg}", card)
+    return times
+
+
+def phase_resident(torch, dev):
+    print("== phase 4d: rank_lex_resident (B3's entry point) at its cap", flush=True)
+    from sequila_tpu_torch.ops.cuda import rank_kernel as rk
+    from sequila_tpu_torch.ops.ranks import rank_lex_sort
+
+    rng = np.random.default_rng(4)
+    n, m = B3_SHAPES[-1]
+    cols = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, 24, n).astype(np.int32),
+        rng.integers(0, 250_000_000, n).astype(np.int32),
+        rng.integers(0, 25, m).astype(np.int32),
+        rng.integers(0, 250_000_000, m).astype(np.int32),
+    )]
+    launches = reset_launches()
+    out = {}
+    for side in ("left", "right"):
+        got = rk.rank_lex_resident(cols[:2], cols[2:], side)
+        torch.cuda.synchronize()
+        out[side] = got
+    ran = launches()
+    for side, got in out.items():
+        d = max_diff(torch, got, rank_lex_sort(cols[:2], cols[2:], side))
+        if d:
+            fail(f"rank_lex_resident side={side}: max |diff| {d} against rank_lex_sort")
+    print(f"rank_lex_resident n={n} m={m}: equal to rank_lex_sort on both sides; "
+          f"launches {ran}")
+    if ran["rank_sorted_resident"] <= 0:
+        fail("kernel rank_sorted_resident was not launched by rank_lex_resident")
+    return ran, cols
+
+
+def phase_times(torch, sessions, card, err, resident_cols):
+    print("== phase 4e: warm route times and kernel vs plain times", flush=True)
+    from sequila_tpu_torch import bench_data as bd
+    from sequila_tpu_torch.ops.cuda import merge_count as mc
+    from sequila_tpu_torch.ops.cuda import rank_kernel as rk
+    from sequila_tpu_torch.ops.cuda import stream_rank as sr
+    from sequila_tpu_torch.ops.cuda.stream_rank import sorted_padded
 
     times = {}
-    for name, ctx, expected in sessions:
-        ts = []
-        for _ in range(WARM_QUERIES):
-            t0 = time.perf_counter()
-            got = int(ctx.sql(bd.QUERY).column_np(0)[0])
-            ts.append(time.perf_counter() - t0)
-            if got != expected:
-                fail(f"{name}: warm query returned {got}")
-        times[name] = float(np.median(ts)) * 1e3
-        print(f"{name}: warm median {times[name]:.3f} ms/query over {WARM_QUERIES} "
-              f"queries, min {min(ts) * 1e3:.3f} ms [{card}]")
+    for name, ctx, expected, _, _ in sessions:
+        times[f"{name}_merge"] = warm_ms(torch, ctx, bd.QUERY, expected, WARM_QUERIES,
+                                         f"{name} merge", card)
+    name, ctx, expected, _, _ = sessions[1]
+    for backend in ("stream", "cosort"):
+        os.environ["SEQUILA_COUNT_BACKEND"] = backend
+        times[f"{name}_{backend}"] = warm_ms(torch, ctx, bd.QUERY, expected, WARM_QUERIES,
+                                             f"{name} {backend}", card)
+    del os.environ["SEQUILA_COUNT_BACKEND"]
 
-    # kernel vs plain time at the genome main-path shapes: the plan's own
-    # device tensors, turns plain, kernel, kernel, plain
-    name, ctx, _ = sessions[1]
+    # kernel vs plain at the genome main-path shapes: the plans' own device
+    # tensors, turns plain, kernel, kernel, plain
     join = ctx.plan_sql(bd.QUERY).children[0]
     left, right = ctx.table("s1"), ctx.table("s2")
     inputs = join._sorted_count_inputs(left, right)
@@ -238,6 +498,22 @@ def phase_main_path(torch, dev, card: str):
     bq_k, bq_v, c_bq, pq_k, pq_v, c_pq = plan[:6]
     q1 = mc.pack_view(bq_k, bq_v, c_bq, mc.BUILD_PAD)
     a1 = mc.pack_view(pq_k, pq_v, c_pq, mc.PROBE_PAD)
+    l_on, r_on, bs_cd, be_cd, qs_cd, qe_cd = inputs[:6]
+    pass_u, _ = sr.stream_pass_inputs(
+        *join._stream_count_plan(left, right, *inputs),
+        d_bs=bs_cd[1], d_be=be_cd[1], d_qs=qs_cd[1], d_qe=qe_cd[1],
+    )
+    d = max(max_diff(torch, sr.stream_rank_sorted(*pass_u, strict=False),
+                     sr.stream_rank_plain(*pass_u, strict=False)),
+            max_diff(torch, sr.stream_rank_sorted(*pass_u, strict=False),
+                     global_rank(torch, pass_u[0][0], pass_u[0][1], *pass_u[3:], False)))
+    err["stream_rank_sorted"] = max(err["stream_rank_sorted"], d)
+    if d:
+        fail(f"stream_rank_sorted at the genome pair's own windows: max |diff| {d}")
+    print(f"stream_rank_sorted at the genome pair's own stream windows: equal to plain "
+          f"and to the global rank (windows of up to {int(pass_u[2].max())} chunks)")
+    a_k, a_v, _ = sorted_padded(*resident_cols[:2], resident_cols[0].numel())
+    r_k, r_v, _ = sorted_padded(*resident_cols[2:], resident_cols[2].numel())
     cases = {
         "pack_view": (
             lambda: mc.pack_view_plain(pq_k, pq_v, c_pq, mc.PROBE_PAD),
@@ -249,6 +525,17 @@ def phase_main_path(torch, dev, card: str):
             lambda: mc.merge_rank_sorted(a1, q1, strict=False, reduce=True),
             f"N={a1.numel()} M={q1.numel()} reduce=True",
         ),
+        "stream_rank_sorted": (
+            lambda: sr.stream_rank_plain(*pass_u, strict=False, reduce=True),
+            lambda: sr.stream_rank_sorted(*pass_u, strict=False, reduce=True),
+            f"N={pass_u[0].shape[1]} M={pass_u[3].numel()} reduce=True, the genome "
+            "pair's stream pass u",
+        ),
+        "rank_sorted_resident": (
+            lambda: rk.rank_resident_plain(a_k, a_v, r_k, r_v, strict=True),
+            lambda: rk.rank_sorted_resident(a_k, a_v, r_k, r_v, strict=True),
+            f"N={a_k.numel()} M={r_k.numel()} ranks",
+        ),
     }
     kernel_ms = {}
     for kname, (plain, kern, shape) in cases.items():
@@ -257,9 +544,9 @@ def phase_main_path(torch, dev, card: str):
         k2 = time_events(torch, kern, TIMED_LAUNCHES)
         p2 = time_events(torch, plain, TIMED_LAUNCHES)
         kernel_ms[kname] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"{kname} ({name} pair, {shape}): kernel {k1:.4f}/{k2:.4f} ms, "
+        print(f"{kname} (genome, {shape}): kernel {k1:.4f}/{k2:.4f} ms, "
               f"plain {p1:.4f}/{p2:.4f} ms [{card}]")
-    return launches, kernel_ms, times
+    return kernel_ms, times
 
 
 def phase_q1():
@@ -285,38 +572,44 @@ def main() -> None:
     os.chdir(here)
     if not os.path.isdir(os.path.join(here, "sequila_tpu_torch")):
         fail("sequila_tpu_torch not found beside chip_smoke.py: run it from the repository")
+    os.environ.pop("SEQUILA_COUNT_BACKEND", None)
+    os.environ.pop("SEQUILA_HOST_THRESHOLD", None)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
     t_start = time.perf_counter()
     card = phase_toolchain(torch)
     phase_build()
     err = phase_kernels(torch, dev)
-    launches, kernel_ms, _ = phase_main_path(torch, dev, card)
+    sessions, merge_launches = phase_main_path(torch, card)
+    stream_launches = phase_backends(torch, sessions)
+    phase_level(torch, sessions, card)
+    resident_launches, resident_cols = phase_resident(torch, dev)
+    kernel_ms, _ = phase_times(torch, sessions, card, err, resident_cols)
     phase_q1()
     if "jax" in sys.modules:
         fail("the port imported jax")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    # each kernel's launches come from the run of its own path: B1 and
+    # pack_view from the merge route, B2 from the stream route, B3 from
+    # rank_lex_resident
+    launches = {
+        "merge_rank_sorted": merge_launches["merge_rank_sorted"],
+        "pack_view": merge_launches["pack_view"],
+        "stream_rank_sorted": stream_launches["stream_rank_sorted"],
+        "rank_sorted_resident": resident_launches["rank_sorted_resident"],
+    }
     record = {"kernels": [
         {
-            "name": "merge_rank_sorted",
+            "name": name,
             "route": "cuda",
-            "source": "sequila_tpu_torch/csrc/merge_rank.cu",
-            "replaces": "sequila_tpu/ops/pallas/merge_count.py:110",
-            "launches": launches["merge_rank_sorted"],
-            "max_abs_err": err["merge_rank_sorted"],
-            "ms": kernel_ms["merge_rank_sorted"][0],
-            "plain_ms": kernel_ms["merge_rank_sorted"][1],
-        },
-        {
-            "name": "pack_view",
-            "route": "cuda",
-            "source": "sequila_tpu_torch/csrc/merge_rank.cu",
-            "replaces": "sequila_tpu/ops/pallas/merge_count.py:158",
-            "launches": launches["pack_view"],
-            "max_abs_err": err["pack_view"],
-            "ms": kernel_ms["pack_view"][0],
-            "plain_ms": kernel_ms["pack_view"][1],
-        },
+            "source": f"sequila_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": err[name],
+            "ms": kernel_ms[name][0],
+            "plain_ms": kernel_ms[name][1],
+        }
+        for name, (src, replaces) in KERNELS.items()
     ]}
     print(card)
     print(json.dumps(record))

@@ -33,6 +33,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_sum.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -85,17 +87,7 @@ merge_rank_kernel(const uint32_t* __restrict__ a, int64_t n,
     if (ranks != nullptr) ranks[i] = static_cast<int32_t>(r);
   }
   if (total == nullptr) return;  // uniform across the block
-  __shared__ unsigned long long warp_sums[kThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int off = 16; off > 0; off >>= 1) r += __shfl_down_sync(0xffffffffu, r, off);
-  if (lane == 0) warp_sums[warp] = r;
-  __syncthreads();
-  if (warp == 0) {
-    r = lane < kThreads / 32 ? warp_sums[lane] : 0ull;
-    for (int off = 16; off > 0; off >>= 1) r += __shfl_down_sync(0xffffffffu, r, off);
-    if (lane == 0 && r != 0) atomicAdd(total, r);
-  }
+  block_sum_to<kThreads>(r, total);
 }
 
 }  // namespace

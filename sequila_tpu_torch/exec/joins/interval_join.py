@@ -1,20 +1,28 @@
-"""IntervalJoinExec — the engine's flagship operator (PyTorch port, slice 1).
+"""IntervalJoinExec — the engine's flagship operator (PyTorch port).
 
 Role-equivalent of the reference's IntervalJoinExec (reference
 joins/interval_join.rs:71-594): a build/probe range-overlap join keyed on
 equi-columns.  Build side = LEFT, probe side = RIGHT.
 
-This slice of the port carries the count(*) path of
-sequila_tpu/exec/joins/interval_join.py:
+The port carries the count(*) path of sequila_tpu/exec/joins/
+interval_join.py, every route of it, on the operator's torch ``device``
+(the kernels' plain PyTorch versions run only when that device is the CPU):
 - below the host threshold, every join (count and materializing inner or
   outer joins) runs on the native C++ host index, as in the JAX package;
-- above it, count(*) runs the merge-count backend
-  (ops/cuda/merge_count.py) on the operator's torch ``device``: two
-  hand-written CUDA rank passes over the tables' cached sorted views, or
-  their plain PyTorch versions when the named device is the CPU.
+- above it, count(*) takes the JAX package's routes in its order:
+  ``SEQUILA_COUNT_BACKEND=stream`` tries the stream backend
+  (ops/cuda/stream_rank.py, CUDA kernel B2), ``merge`` (the default) the
+  merge backend (ops/cuda/merge_count.py, CUDA kernel B1); a shape either
+  declines, and ``cosort``, go to the one-pass BITS count over resident
+  columns (ops/interval_join.counts_bits_fused); degenerate probes,
+  inverted builds and keys it cannot take go to the chunked level loop
+  over the interval index (ops/interval_join.count_matches).
+  ``ctx.metrics`` records the route that answered under the operator's id
+  (``count_route_<name>``).
 
-Every other route raises NotImplementedError naming its ROADMAP.md item;
-none is rerouted quietly.
+Materialization above the threshold, streaming, nearest and per-probe
+counts, and Partitioned mode raise NotImplementedError naming their
+ROADMAP.md item; none is rerouted quietly.
 
 Semantics parity contract:
 - end-inclusive i32 intervals; strict </> already normalized to `end - 1`
@@ -42,8 +50,24 @@ from sequila_tpu_torch.exec.joins.utils import (
 )
 from sequila_tpu_torch.exec.plan import ExecPlan
 from sequila_tpu_torch.models.table import Table, encode_join_keys
+from sequila_tpu_torch.ops.interval_index import build_interval_index
+from sequila_tpu_torch.ops.interval_join import count_matches, total_count_i64
 from sequila_tpu_torch.planner.expr import JoinFilter, Literal, PhysicalExpr
 from sequila_tpu_torch.planner.intervals import ColIntervals
+
+# Probe rows per device chunk of the level loop.
+_FULL_MODE_CHUNK = 4 << 20
+
+# Algorithm -> rank strategy of ops/interval_join.overlap_bounds.
+_ALG_METHOD = {
+    Algorithm.COITREES: "sort",
+    Algorithm.SUPER_INTERVALS: "sort",
+    Algorithm.LAPPER: "window",
+    Algorithm.INTERVAL_TREE: "bsearch",
+    Algorithm.ARRAY_INTERVAL_TREE: "bsearch",
+    Algorithm.COITREES_NEAREST: "sort",
+    Algorithm.COITREES_COUNT_OVERLAPS: "sort",
+}
 
 
 def _host_threshold() -> int:
@@ -515,9 +539,140 @@ class IntervalJoinExec(ExecPlan):
             pe_k, pe_v, c_qe,
         )
 
+    def _stream_sorted_count(self, ctx, left: Table, right: Table):
+        """Sort-free count over cached sorted views through the stream
+        kernel (ops/cuda/stream_rank.py); None when the plan shape doesn't
+        qualify."""
+        from sequila_tpu_torch.ops.cuda.stream_rank import stream_count_passes
+
+        inputs = self._sorted_count_inputs(left, right)
+        if inputs is None:
+            return None
+        l_on, r_on, bs_cd, be_cd, qs_cd, qe_cd = inputs[:6]
+        # the remapped windows are deterministic per (table pair, bound
+        # columns, deltas, device): bounded paired memo on the table
+        plan = left.paired_memo(
+            ("scount", l_on.index, r_on.index, bs_cd, be_cd, qs_cd, qe_cd,
+             str(self.device), id(right)),
+            right,
+            lambda: self._stream_count_plan(left, right, *inputs),
+        )
+        if plan is None:
+            return None
+        with ctx.timer(self.op_id(), "join_time"):
+            total = int(stream_count_passes(
+                *plan, d_bs=bs_cd[1], d_be=be_cd[1], d_qs=qs_cd[1], d_qe=qe_cd[1],
+            ))
+        ctx.metrics.add(self.op_id(), "output_rows", total)
+        return total
+
+    def _stream_count_plan(
+        self, left, right, l_on, r_on, bs_cd, be_cd, qs_cd, qe_cd, remap_b, remap_q,
+    ):
+        """Argument tuple of stream_count_passes (all but the deltas), or
+        None: the cached sorted views on the device and each rank pass's
+        block windows from their host twins."""
+        from sequila_tpu_torch.ops.cuda.stream_rank import host_windows
+
+        dev = self.device
+        # cached sorted views: build by start / by end; probe by end / start
+        bu_k, bu_v, bu_kh, bu_vh, _ = left.sorted_interval_view(l_on.index, bs_cd[0], dev)
+        bl_k, bl_v, bl_kh, bl_vh, _ = left.sorted_interval_view(l_on.index, be_cd[0], dev)
+        qu_k, qu_v, qu_kh, qu_vh, _ = right.sorted_interval_view(r_on.index, qe_cd[0], dev)
+        ql_k, ql_v, ql_kh, ql_vh, _ = right.sorted_interval_view(r_on.index, qs_cd[0], dev)
+        if qu_k.shape[0] != ql_k.shape[0]:
+            return None
+
+        PADH = np.int32(2**31 - 1)
+
+        def tx_build(kh, vh, d):
+            k = np.where(kh == PADH, PADH, remap_b[np.clip(kh, 0, len(remap_b) - 1)])
+            v = np.where(kh == PADH, PADH, vh.astype(np.int64) + d).astype(np.int64)
+            return k, v
+
+        def tx_probe(kh, vh, d):
+            k = np.where(kh == PADH, PADH, remap_q[np.clip(kh, 0, len(remap_q) - 1)])
+            v = np.where(kh == PADH, np.int64(PADH) - 1, vh.astype(np.int64) + d)
+            return k, v
+
+        c_lo_u, n_chunks_u = host_windows(
+            *tx_build(bu_kh, bu_vh, bs_cd[1]), *tx_probe(qu_kh, qu_vh, qe_cd[1])
+        )
+        c_lo_l, n_chunks_l = host_windows(
+            *tx_build(bl_kh, bl_vh, be_cd[1]), *tx_probe(ql_kh, ql_vh, qs_cd[1])
+        )
+        on_dev = [
+            torch.from_numpy(a).to(dev)
+            for a in (remap_b, remap_q, c_lo_u, n_chunks_u, c_lo_l, n_chunks_l)
+        ]
+        return (bu_k, bu_v, bl_k, bl_v, qu_k, qu_v, ql_k, ql_v, *on_dev)
+
+    def _device_bound(self, expr, table: Table):
+        """Interval-bound expression over device-resident columns, or None.
+
+        Covers plain columns and the planner's strict-op normalizations
+        (`col - 1` / `col + 1`); anything else goes to the level loop's
+        host evaluation."""
+        cd = self._bound_col_delta(expr, table)
+        if cd is None:
+            return None
+        col = table.device_i32(cd[0], self.device)
+        return col + cd[1] if cd[1] else col
+
+    def _device_resident_count(self, ctx, left: Table, right: Table):
+        """One-pass BITS count over cached resident columns, or None if
+        the plan shape doesn't qualify (multi-key, complex exprs, nullable
+        keys, inverted builds) or degenerate probe rows require the exact
+        level path."""
+        from sequila_tpu_torch.models.table import device_remaps
+        from sequila_tpu_torch.ops.interval_join import counts_bits_fused
+        from sequila_tpu_torch.planner.expr import Column
+
+        if len(self.on) != 1:
+            return None
+        l_on, r_on = self.on[0]
+        synthetic = isinstance(l_on, Literal) and isinstance(r_on, Literal)
+        if not synthetic and not (
+            isinstance(l_on, Column) and isinstance(r_on, Column)
+        ):
+            return None
+        bs_cd = self._bound_col_delta(self.intervals.left_interval.start, left)
+        be_cd = self._bound_col_delta(self.intervals.left_interval.end, left)
+        if bs_cd is not None and be_cd is not None:
+            if left.min_i32_diff(be_cd[0], bs_cd[0]) + be_cd[1] - bs_cd[1] < 0:
+                return None  # inverted build intervals break BITS
+        bounds = [
+            self._device_bound(self.intervals.left_interval.start, left),
+            self._device_bound(self.intervals.left_interval.end, left),
+            self._device_bound(self.intervals.right_interval.start, right),
+            self._device_bound(self.intervals.right_interval.end, right),
+        ]
+        if any(x is None for x in bounds):
+            return None
+        dev = self.device
+        if synthetic:
+            lk = torch.zeros(left.num_rows, dtype=torch.int32, device=dev)
+            rk = torch.zeros(right.num_rows, dtype=torch.int32, device=dev)
+            remap_l = remap_r = torch.zeros(1, dtype=torch.int32, device=dev)
+        else:
+            if left.column(l_on.index).null_count or right.column(r_on.index).null_count:
+                return None
+            _, _, lk = left.dict_codes(l_on.index, dev)
+            _, _, rk = right.dict_codes(r_on.index, dev)
+            remap_l, remap_r = device_remaps(left, l_on.index, right, r_on.index, dev)
+        with ctx.timer(self.op_id(), "join_time"):
+            total, n_deg = counts_bits_fused(lk, *bounds[:2], rk, *bounds[2:],
+                                             remap_l, remap_r).tolist()
+        if n_deg > 0:
+            return None  # exact level path required
+        ctx.metrics.add(self.op_id(), "output_rows", total)
+        return total
+
     # -- key/bound preparation ---------------------------------------------
-    def _prepare(self, ctx, left: Table, right: Table):
-        """Host key codes and i32 bounds: ((lcodes, ls, le), rcodes, rs, re)."""
+    def _prepare(self, ctx, left: Table, right: Table, build_index: bool = True):
+        """Host key codes and i32 bounds, with the build side as an
+        IntervalIndex on ``self.device`` (``build_index``) or as host
+        arrays: (index or (lcodes, ls, le), rcodes, rs, re)."""
         on = self.on
         synthetic_keys = all(
             isinstance(l, Literal) and isinstance(r, Literal) for l, r in on
@@ -546,11 +701,45 @@ class IntervalJoinExec(ExecPlan):
         build_bytes = max(left.num_rows, 1) * 4 * 9
         ctx.memory.try_grow(self.op_id(), build_bytes)
         ctx.metrics.add(self.op_id(), "build_mem_used", build_bytes)
-        return (lcodes, ls, le), rcodes, rs, re
+        if not build_index:
+            return (lcodes, ls, le), rcodes, rs, re
+        # Cache the device index per (key column, bound columns+deltas,
+        # right-table identity, device): the joint key codes depend on BOTH
+        # dictionaries, and the host level assignment dominates repeated
+        # queries.  Plain-Column shapes only — complex exprs rebuild.
+        def build():
+            with ctx.timer(self.op_id(), "build_time"):
+                return build_interval_index(lcodes, ls, le, self.device)
+
+        cache_key = self._index_cache_key(left, right)
+        if cache_key is None:
+            return build(), rcodes, rs, re
+        index = left.paired_memo(cache_key + (str(self.device),), right, build)
+        return index, rcodes, rs, re
+
+    @staticmethod
+    def _probe_chunk(rcodes, rs, re, lo, rows, device):
+        """One chunk of probe keys and bounds as int32 tensors on
+        ``device``.  The JAX package pads each chunk to a bucket size with
+        zero-count probes to bound XLA recompiles; the port needs no
+        padding."""
+        return tuple(torch.tensor(a[lo : lo + rows], device=device) for a in (rcodes, rs, re))
+
+    @staticmethod
+    def _chunk_count_method(rs, re, lo, rows, fallback_method, build_inverted=False):
+        """BITS for clean chunks; degenerate (qs > qe) probe rows AND
+        inverted build intervals (end < start) break the BITS subset
+        argument and must go through the exact level path."""
+        if build_inverted:
+            return fallback_method
+        if bool((rs[lo : lo + rows] > re[lo : lo + rows]).any()):
+            return fallback_method
+        return "bits"
 
     def _index_cache_key(self, left: Table, right: Table):
-        """Cache key for the host interval index, or None when the plan
-        shape (multi-key, complex exprs, nullable keys) precludes it."""
+        """Cache key for the interval index (host or device), or None when
+        the plan shape (multi-key, complex exprs, nullable keys) precludes
+        it."""
         from sequila_tpu_torch.planner.expr import Column
 
         if len(self.on) != 1:
@@ -572,7 +761,7 @@ class IntervalJoinExec(ExecPlan):
     def _host_index(self, ctx, left: Table, right: Table):
         from sequila_tpu_torch.ops.host_join import make_host_index
 
-        index, rcodes, rs, re = self._prepare(ctx, left, right)
+        index, rcodes, rs, re = self._prepare(ctx, left, right, build_index=False)
         # memoized per table pair: the host index build
         # (native radix sort + level decomposition + hint grids) is
         # pair-deterministic and would dominate small repeated queries
@@ -618,25 +807,49 @@ class IntervalJoinExec(ExecPlan):
         right = self.children[1].execute(ctx)
         if self.algorithm.is_nearest:
             return right.num_rows
+        op = self.op_id()
         if self._use_host(left, right):
             hidx, rcodes, rs, re = self._host_index(ctx, left, right)
             total = int(hidx.counts(rcodes, rs, re).sum())
-            ctx.metrics.add(self.op_id(), "output_rows", total)
+            ctx.metrics.add(op, "output_rows", total)
+            ctx.metrics.add(op, "count_route_host")
             return total
-        backend = _os.environ.get("SEQUILA_COUNT_BACKEND", "merge")
-        if backend != "merge":
-            raise _not_ported(f"SEQUILA_COUNT_BACKEND={backend}", "A5")
         if left.num_rows == 0 or right.num_rows == 0:
-            ctx.metrics.add(self.op_id(), "output_rows", 0)
+            ctx.metrics.add(op, "output_rows", 0)
             return 0
-        total = self._merge_sorted_count(ctx, left, right)
-        if total is None:
-            # the JAX package falls back to its co-sort / level programs for
-            # shapes the merge plan declines (multi-column or computed keys,
-            # degenerate probes, inverted builds, spans beyond 32 bits)
-            raise _not_ported(
-                "the co-sort and level count fallbacks for this join shape", "A5"
-            )
+        backend = _os.environ.get("SEQUILA_COUNT_BACKEND", "merge")
+        # each route returns None for a shape it declines, which passes on
+        # to the next, in the JAX package's order
+        routes = [("stream", self._stream_sorted_count)] if backend == "stream" else []
+        if backend == "merge":
+            routes.append(("merge", self._merge_sorted_count))
+        routes += [("cosort", self._device_resident_count), ("level", self._level_count)]
+        for name, route in routes:  # the level loop answers every shape
+            total = route(ctx, left, right)
+            if total is not None:
+                break
+        ctx.metrics.add(op, f"count_route_{name}")
+        return total
+
+    def _level_count(self, ctx, left: Table, right: Table) -> int:
+        """The exact chunked count over the level index: BITS for clean
+        probe chunks, the algorithm's level strategy for chunks with
+        degenerate probes or an inverted build."""
+        index, rcodes, rs, re = self._prepare(ctx, left, right)
+        method = _ALG_METHOD[self.algorithm]
+        build_inverted = bool((index._he < index._hs).any())
+        m = right.num_rows
+        total = 0
+        with ctx.timer(self.op_id(), "join_time"):
+            for lo in range(0, m, _FULL_MODE_CHUNK):
+                rows = min(_FULL_MODE_CHUNK, m - lo)
+                chunk_method = self._chunk_count_method(
+                    rs, re, lo, rows, method, build_inverted
+                )
+                qk, qs, qe = self._probe_chunk(rcodes, rs, re, lo, rows, self.device)
+                counts = count_matches(index, qk, qs, qe, chunk_method)
+                total += total_count_i64(counts)
+        ctx.metrics.add(self.op_id(), "output_rows", total)
         return total
 
     def per_probe_counts(self, ctx, with_table: bool = False):

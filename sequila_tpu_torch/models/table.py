@@ -804,12 +804,26 @@ def merge_dictionaries(lvals: np.ndarray, rvals: np.ndarray):
     return inv[: len(lv)].astype(np.int32), inv[len(lv):].astype(np.int32)
 
 
-def device_remaps(left: "Table", l_col, right: "Table", r_col):
-    """Device-resident (remap_l, remap_r) for the co-sort count fallback."""
-    raise NotImplementedError(
-        "device_remaps feeds the co-sort count fallback, not ported yet "
-        "(ROADMAP.md A5)"
-    )
+def device_remaps(left: "Table", l_col, right: "Table", r_col, device):
+    """(remap_l, remap_r) int32 tensors on ``device`` for a table pair's key
+    columns: each side's local dictionary codes into the joint code space.
+
+    Cached on the left table per device, so repeated joins of the same
+    registered tables do not upload them again.  The cache entry pins the
+    right table by weakref identity — a recycled id() can never serve a
+    stale remap."""
+    import weakref
+
+    key = ("remap", l_col, r_col, _device_key(device), id(right))
+    entry = left._codes.get(key)
+    if entry is not None and entry[0]() is right:
+        return entry[1], entry[2]
+    _, lvals, _ = left.dict_codes(l_col)
+    _, rvals, _ = right.dict_codes(r_col)
+    rl, rr = merge_dictionaries(lvals, rvals)
+    dl, dr = torch.from_numpy(rl).to(device), torch.from_numpy(rr).to(device)
+    left._codes[key] = (weakref.ref(right), dl, dr)
+    return dl, dr
 
 
 def pretty_format(table: Table) -> str:

@@ -3,9 +3,10 @@
 The sources under ``sequila_tpu_torch/csrc`` expose a plain C interface,
 so they compile with ``nvcc`` alone in seconds (no PyTorch headers).  The
 library is built on first use into ``sequila_tpu_torch/_build/cuda``, keyed
-by a hash of the sources and flags, for Hopper only
-(``-gencode arch=compute_90a,code=sm_90a``).  A missing ``nvcc`` or a
-failed build raises: there is no fallback.
+by a hash of the sources, headers and flags, for Hopper only
+(``-gencode arch=compute_90a,code=sm_90a``): one ``nvcc -c`` a source, all
+started together, then one link.  A missing ``nvcc`` or a failed build
+raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -21,10 +22,9 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build", "cuda")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_BUILD_TIMEOUT = 600
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -45,6 +45,15 @@ def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
 
 
+def _run(cmd: list[str]) -> str:
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=_BUILD_TIMEOUT)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}{res.stderr}"
+        )
+    return res.stdout + res.stderr
+
+
 def build() -> tuple[str, str]:
     """(path of the shared library, nvcc's build log), building if needed.
 
@@ -52,7 +61,7 @@ def build() -> tuple[str, str]:
     spills; it is kept beside the library so a cached build still shows it."""
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
         with open(s, "rb") as f:
             h.update(f.read())
     tag = h.hexdigest()[:16]
@@ -60,16 +69,29 @@ def build() -> tuple[str, str]:
     log_path = so_path + ".log"
     if not os.path.exists(so_path):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so_path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}{res.stderr}"
-            )
+        tmp = f"{so_path}.{os.getpid()}"
+        nvcc = _nvcc()
+        objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+        # one nvcc a source, all at once: the build is as long as the
+        # slowest source, not their sum
+        procs = [
+            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(srcs, objs))
+        ]
+        logs, failed = [], []
+        for cmd, p in procs:
+            out, _ = p.communicate(timeout=_BUILD_TIMEOUT)
+            logs.append(out)
+            if p.returncode != 0:
+                failed.append(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        logs.append(_run([nvcc, *_ARCH, "-shared", "-Xcompiler", "-fPIC", "-o", f"{tmp}.so", *objs]))
+        for o in objs:
+            os.remove(o)
         with open(log_path, "w") as f:
-            f.write(res.stdout + res.stderr)
-        os.replace(tmp, so_path)
+            f.write("".join(logs))
+        os.replace(f"{tmp}.so", so_path)
     with open(log_path) as f:
         return so_path, f.read()
 
@@ -86,6 +108,10 @@ def lib() -> ctypes.CDLL:
             cdll.seq_pack_view.argtypes = [vp, vp, vp, i32, ctypes.c_uint32, vp, i64, vp]
             cdll.seq_merge_rank.restype = ctypes.c_int
             cdll.seq_merge_rank.argtypes = [vp, i64, vp, i64, i32, vp, vp, vp]
+            cdll.seq_stream_rank.restype = ctypes.c_int
+            cdll.seq_stream_rank.argtypes = [vp, vp, i64, vp, vp, vp, vp, i64, i32, vp, vp, vp]
+            cdll.seq_resident_rank.restype = ctypes.c_int
+            cdll.seq_resident_rank.argtypes = [vp, vp, i64, vp, vp, i64, i32, vp, vp, vp]
             _LIB = cdll
         return _LIB
 

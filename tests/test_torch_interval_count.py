@@ -4,7 +4,8 @@ IntervalJoinExec._merge_sorted_count of both packages on the shapes of
 tests/test_merge_count.py (planner ±1 deltas, negative coordinates,
 missing keys, dense ties, probe larger and smaller than build), on the
 same arrow tables; counts compare exactly.  Shapes the merge plan declines
-and every route off this slice raise NotImplementedError naming their
+take the co-sort and level routes in both packages and compare exactly;
+the routes off the count(*) slice raise NotImplementedError naming their
 ROADMAP.md item instead of rerouting.
 """
 
@@ -13,6 +14,7 @@ import pyarrow as pa
 import pytest
 
 from sequila_tpu.config import Algorithm, SequilaConfig
+from sequila_tpu_torch.config import Algorithm as TorchAlgorithm
 from sequila_tpu.exec.context import ExecContext as JaxCtx
 from sequila_tpu.exec.joins.interval_join import IntervalJoinExec as JaxJoin
 from sequila_tpu.exec.plan import ScanExec as JaxScan
@@ -35,11 +37,12 @@ def _bound(ex, idx, d):
     return ex.BinaryExpr(col, "+" if d > 0 else "-", ex.Literal(abs(d)))
 
 
-def _join(pkg, lt, rt, deltas=(0, 0, 0, 0), **kw):
-    """An IntervalJoinExec of the JAX package ('jax') or of the port."""
-    ex, iv, Join, Scan, Table = (
-        (jexpr, jiv, JaxJoin, JaxScan, JaxTable) if pkg == "jax"
-        else (texpr, tiv, TorchJoin, TorchScan, TorchTable)
+def _join(pkg, lt, rt, deltas=(0, 0, 0, 0), alg="COITREES", **kw):
+    """An IntervalJoinExec of the JAX package ('jax') or of the port, with
+    the package's own ``Algorithm`` member named ``alg``."""
+    ex, iv, Join, Scan, Table, Alg = (
+        (jexpr, jiv, JaxJoin, JaxScan, JaxTable, Algorithm) if pkg == "jax"
+        else (texpr, tiv, TorchJoin, TorchScan, TorchTable, TorchAlgorithm)
     )
     d_bs, d_be, d_qs, d_qe = deltas
     lt, rt = Table(lt), Table(rt)
@@ -53,7 +56,7 @@ def _join(pkg, lt, rt, deltas=(0, 0, 0, 0), **kw):
             iv.ColInterval(_bound(ex, 1, d_bs), _bound(ex, 2, d_be)),
             iv.ColInterval(_bound(ex, 1, d_qs), _bound(ex, 2, d_qe)),
         ),
-        algorithm=Algorithm.COITREES,
+        algorithm=Alg[alg],
         **kw,
     )
     return join, lt, rt
@@ -146,12 +149,27 @@ def _inverted_build(rng):
     return lt, rt
 
 
+def _device_count(lt, rt, **kw):
+    """(port count, JAX count, the port's route) of count_rows on one table
+    pair; the caller sets SEQUILA_HOST_THRESHOLD and the backend."""
+    jjoin, _, _ = _join("jax", lt, rt, **kw)
+    tjoin, _, _ = _join("torch", lt, rt, **kw)
+    ctx = TorchCtx(TorchConfig())
+    got = tjoin.count_rows(ctx)
+    routes = [k for k in ctx.metrics.counters[tjoin.op_id()] if k.startswith("count_route_")]
+    assert len(routes) == 1
+    return got, jjoin.count_rows(JaxCtx(SequilaConfig())), routes[0][len("count_route_"):]
+
+
 class TestDeclinedShapesRaise:
-    """Where the JAX merge plan declines, the JAX package falls back to its
-    co-sort / level programs; the port raises instead (ROADMAP.md A5)."""
+    """Shapes the merge plan declines, and the other count backends: the
+    port passes them on to the co-sort BITS count and the level loop, as
+    the JAX package does, and counts exactly what it counts (the class
+    keeps its name from when the port raised here)."""
 
     @pytest.mark.parametrize("shape", ["span", "degenerate", "inverted"])
     def test_declined_merge_plan(self, rng, monkeypatch, shape):
+        route = "cosort" if shape == "span" else "level"
         lt, rt = {
             "span": lambda: (_wide(500, 1), _wide(700, 2)),
             "degenerate": lambda: _degenerate_probe(rng),
@@ -160,24 +178,23 @@ class TestDeclinedShapesRaise:
         got, want = _merge_counts(lt, rt)
         assert got is None and want is None
         monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "0")
-        tjoin, _, _ = _join("torch", lt, rt)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-            tjoin.count_rows(TorchCtx(TorchConfig()))
+        got, want, took = _device_count(lt, rt)
+        assert took == route
+        assert got == want
         # at the default threshold the same query takes the host route,
         # as in the JAX package, and agrees with it
         monkeypatch.delenv("SEQUILA_HOST_THRESHOLD")
-        jjoin, _, _ = _join("jax", lt, rt)
-        assert tjoin.count_rows(TorchCtx(TorchConfig())) == jjoin.count_rows(
-            JaxCtx(SequilaConfig())
-        )
+        got, host, took = _device_count(lt, rt)
+        assert took == "host"
+        assert got == host == want
 
     @pytest.mark.parametrize("backend", ["cosort", "stream"])
     def test_other_count_backends(self, rng, monkeypatch, backend):
         monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "0")
         monkeypatch.setenv("SEQUILA_COUNT_BACKEND", backend)
-        tjoin, _, _ = _join("torch", *_tables(rng, 100, 100))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-            tjoin.count_rows(TorchCtx(TorchConfig()))
+        got, want, took = _device_count(*_tables(rng, 100, 100))
+        assert took == backend
+        assert got == want > 0
 
     def test_empty_side_counts_zero(self, rng, monkeypatch):
         monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "0")

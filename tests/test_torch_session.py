@@ -74,6 +74,62 @@ def test_sql_count_matches_jax(sessions, monkeypatch, threshold, query):
     assert _count(torch_ctx, QUERIES[query]) == want
 
 
+@pytest.mark.parametrize("backend", ["stream", "cosort"])
+@pytest.mark.parametrize("query", sorted(QUERIES))
+def test_sql_count_backends_match_jax(sessions, monkeypatch, backend, query):
+    monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "0")
+    monkeypatch.setenv("SEQUILA_COUNT_BACKEND", backend)
+    jax_ctx, torch_ctx = sessions
+    want = _count(jax_ctx, QUERIES[query])
+    assert want > 0
+    assert _count(torch_ctx, QUERIES[query]) == want
+    routes = {k for c in torch_ctx.last_metrics.counters.values() for k in c
+              if k.startswith("count_route_")}
+    assert routes == {f"count_route_{backend}"}
+
+
+HALF_OPEN = ("SELECT count(*) FROM a JOIN b ON a.contig = b.contig "
+             "AND a.pos_start < b.pos_end AND a.pos_end > b.pos_start")
+
+
+@pytest.mark.parametrize("alg", ["Coitrees", "IntervalTree"])
+def test_half_open_zero_length_probes_take_the_level_loop(monkeypatch, alg):
+    """Zero-length probe rows are degenerate after the planner's end - 1:
+    the level loop answers, equal to the JAX package and to the native
+    host index over the same columns (the smoke run's check at full size)."""
+    from sequila_tpu_torch.ops.host_join import make_host_index
+
+    rng = np.random.default_rng(5)
+    a, b = _arrow(rng, 3000, 4), _arrow(rng, 4000, 4)
+    e = b["pos_end"].to_numpy().copy()
+    zero = rng.random(len(e)) < 0.01
+    e[zero] = b["pos_start"].to_numpy()[zero]
+    b = b.set_column(2, "pos_end", pa.array(e))
+    jax_ctx, torch_ctx = JaxSession(), TorchSession(device="cpu")
+    for ctx in (jax_ctx, torch_ctx):
+        ctx.sql(f"SET sequila.interval_join_algorithm = {alg}")
+        ctx.register_table("a", a)
+        ctx.register_table("b", b)
+    monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "0")
+    got = _count(torch_ctx, HALF_OPEN)
+    routes = {k for c in torch_ctx.last_metrics.counters.values() for k in c
+              if k.startswith("count_route_")}
+    assert routes == {"count_route_level"}
+    assert got == _count(jax_ctx, HALF_OPEN)
+    keys = np.unique(np.concatenate([a["contig"].to_numpy(), b["contig"].to_numpy()]))
+    hidx = make_host_index(
+        np.searchsorted(keys, a["contig"].to_numpy()).astype(np.int32),
+        a["pos_start"].to_numpy().astype(np.int32),
+        (a["pos_end"].to_numpy() - 1).astype(np.int32),
+    )
+    want = int(hidx.counts(
+        np.searchsorted(keys, b["contig"].to_numpy()).astype(np.int32),
+        b["pos_start"].to_numpy().astype(np.int32),
+        (e - 1).astype(np.int32),
+    ).sum())
+    assert got == want > 0
+
+
 def test_explain_matches_jax(sessions):
     jax_ctx, torch_ctx = sessions
     q = "EXPLAIN " + QUERIES["overlap"]

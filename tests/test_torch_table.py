@@ -83,7 +83,19 @@ def test_device_i32_and_statistics(tables):
     assert tt.min_i32_diff(2, 1) == jt.min_i32_diff(2, 1)
 
 
-def test_device_remaps_is_off_the_slice(tables):
-    _, tt = tables
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        device_remaps(tt, 0, tt, 0)
+def test_device_remaps_is_off_the_slice(tables, rng):
+    """device_remaps (once off the slice, now on it): the JAX package's
+    remaps, as int32 tensors cached per device and per right table."""
+    from sequila_tpu.models.table import device_remaps as jax_device_remaps
+
+    jt, tt = tables
+    other = _arrow(rng, 500, nkeys=9, numeric_keys=tt.column(0).type == pa.int64())
+    jo, to = JaxTable(other), TorchTable(other)
+    got = device_remaps(tt, 0, to, 0, "cpu")
+    for g, w in zip(got, jax_device_remaps(jt, 0, jo, 0)):
+        assert g.dtype == torch.int32 and g.device.type == "cpu"
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    again = device_remaps(tt, 0, to, 0, "cpu")
+    assert again[0] is got[0] and again[1] is got[1]
+    # another right table never shares the cache entry
+    assert device_remaps(tt, 0, tt, 0, "cpu")[1] is not got[1]
