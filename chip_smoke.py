@@ -32,7 +32,34 @@ Phases, each of which exits non-zero when it fails:
    then the warm time of every route on the genome pair and each kernel's
    time against its plain version (CUDA events, turns plain, kernel,
    kernel, plain), beside the card's name and power limit;
-5. the q1 fixture through the port's CLI (host route), expecting 16.
+5a. the materializing ``SELECT *`` at the 15M-row pairing
+   (``gen_chain_table(20_000, 13)`` x ``gen_chain_table(300_000, 14)``):
+   the host route for reference, then the device route on the merge
+   emission bounds (B1's and pack_view's launch counters must rise), whose
+   rows must number the join's count(*) and whose order-independent
+   checksum must equal the host route's; SEQUILA_EMIT_BACKEND=cosort and
+   the low-memory capped chunks must equal it row for row, Lapper (window)
+   and IntervalTree (bsearch) must give its checksum, and a LEFT JOIN the
+   host route's checksum; each route asserted through the operator's
+   route metric (``emit_route_<name>``); warm times of both routes;
+5a'. the three emission strategies on that join's merge bounds (equal
+   pairs, each timed), its level-bounds pass of 2 + 2L pack_view launches
+   (each equal to its plain version on the same inputs) and 2L B1 launches
+   (each equal, then timed against their plain version with CUDA events);
+5b. ``sql_batches`` of ``SELECT *`` over the chr1 pair with
+   max_output_batch_size = 1,000,000 on the device and host routes:
+   153,690,858 rows, batches of at most 4,000,000 rows unless one probe
+   row alone has more, equal checksums, rows/s of each;
+5c. ``COPY`` of the 15M-row join to a parquet directory, read back with
+   the same row count and checksum;
+5d. where the time of the 15M-row warm ``SELECT *`` goes: each stage of
+   the device and host routes timed on the host clock with the device
+   synchronised, and the device route's busy share under torch.profiler;
+5e. ``SELECT *`` of the genome pair's 2.35 M-row build table against
+   100,000 and 1,000,000 probe rows on the host and device routes, each
+   from a fresh session (first query and warm median), with equal
+   checksums: the shapes where materialize_route_host's build term counts;
+6. the q1 fixture through the port's CLI (host route), expecting 16.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -64,12 +91,25 @@ HALF_OPEN_QUERY = (
 # M, the chr1 and genome padded view shapes in both directions; pack_view
 # (rows, keys); B2 (real build rows, real queries): the pairs' own sizes in
 # both directions; B3 (build rows, queries) up to its cap
-B1_SHAPES = [(0, 300), (1, 1), (2048, 1000), (5000, 257), (303_104, 208_896),
-             (7_684_096, 2_351_104), (2_351_104, 7_684_096)]
+B1_SHAPES = [(0, 300), (1, 1), (2048, 1000), (5000, 257), (65_536, 303_104),
+             (303_104, 208_896), (7_684_096, 2_351_104), (2_351_104, 7_684_096)]
 PACK_SHAPES = [(0, 1), (1000, 3), (1_000_003, 24), (7_684_096, 24)]
 B2_SHAPES = [(0, 300), (1, 1), (5000, 257), (207_146, 302_381),
              (2_350_965, 7_684_066), (7_684_066, 2_350_965)]
 B3_SHAPES = [(2048, 1000), (6144, 257), (303_104, 208_896), (1 << 20, 2_351_104)]
+# phases 5a-5c: the 15M-row SELECT * pairing and the chr1 stream
+MAT_PAIR = ((20_000, 13), (300_000, 14))
+SELECT_STAR = (
+    "SELECT * FROM s1 a JOIN s2 b ON a.contig = b.contig "
+    "AND a.pos_end >= b.pos_start AND a.pos_start <= b.pos_end"
+)
+LEFT_JOIN = SELECT_STAR.replace(" JOIN ", " LEFT JOIN ", 1)
+MAT_WARM_QUERIES = 3
+STREAM_BATCH = 1_000_000
+# phase 5e: probe tables (rows, seed) joined to the genome pair's build table
+ROUTE_PROBES = [(100_000, 23), (1_000_000, 23)]
+HOST_ROUTE = str(10**12)  # SEQUILA_HOST_THRESHOLD that keeps every join on the host
+STRATEGIES = ("runs", "bounds", "emit")
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "merge_rank_sorted": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:110"),
     "pack_view": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:158"),
@@ -549,8 +589,405 @@ def phase_times(torch, sessions, card, err, resident_cols):
     return kernel_ms, times
 
 
+def checksum(batches) -> tuple[int, int]:
+    """(rows, order-independent checksum) of join output batches: a
+    uint64 wrap-around sum over rows of a mix of the four bound columns
+    (SELECT * positions 1, 2, 4, 5; NULLs of an outer join count as -1)."""
+    import pyarrow.compute as pc
+
+    rows, acc = 0, np.uint64(0)
+    keys = [np.uint64(k) for k in (0x9E3779B97F4A7C15, 0xC2B2AE3D27D4EB4F,
+                                   0x165667B19E3779F9, 0xD6E8FEB86659FD93)]
+    for t in batches:
+        t = getattr(t, "arrow", t)
+        rows += t.num_rows
+        if not t.num_rows:
+            continue
+        h = np.zeros(t.num_rows, np.uint64)
+        for i, k in zip((1, 2, 4, 5), keys):
+            col = pc.fill_null(t.column(i), -1).to_numpy().astype(np.int64)
+            h ^= col.view(np.uint64) * k
+        h ^= h >> np.uint64(31)
+        acc += np.sum(h * keys[0], dtype=np.uint64)
+    return rows, int(acc)
+
+
+def emit_route(session) -> str:
+    """The emission route the session's last query took (its route metric)."""
+    routes = [k for c in session.last_metrics.counters.values() for k in c
+              if k.startswith("emit_route_")]
+    if len(routes) != 1:
+        fail(f"expected one emission route metric, got {routes}")
+    return routes[0][len("emit_route_"):]
+
+
+def interval_join_of(plan):
+    """The IntervalJoinExec of a physical plan."""
+    from sequila_tpu_torch.exec.joins.interval_join import IntervalJoinExec
+
+    stack = [plan]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, IntervalJoinExec):
+            return node
+        stack.extend(node.children)
+    fail("the plan holds no IntervalJoinExec")
+
+
+def default_route(n: int, m: int) -> str:
+    """The route materialize_route_host picks for n build and m probe rows
+    at its defaults (no SEQUILA_HOST_THRESHOLD)."""
+    from sequila_tpu_torch.exec.joins.interval_join import materialize_route_host
+
+    saved = os.environ.pop("SEQUILA_HOST_THRESHOLD", None)
+    try:
+        return "host" if materialize_route_host(n, m) else "device"
+    finally:
+        if saved is not None:
+            os.environ["SEQUILA_HOST_THRESHOLD"] = saved
+
+
+def timed_select(torch, ctx, query):
+    """(result table, seconds) of one ctx.sql, the device synchronised."""
+    t0 = time.perf_counter()
+    out = ctx.sql(query)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_materialize(torch, card):
+    print("== phase 5a: materializing SELECT * at the 15M-row pairing", flush=True)
+    import pyarrow as pa
+
+    from sequila_tpu_torch import bench_data as bd
+    from sequila_tpu_torch.session import SessionContext
+
+    (n, seed_l), (m, seed_r) = MAT_PAIR
+    ctx = SessionContext(device="cuda")
+    ctx.register_table("s1", pa.table(bd.gen_chain_table(n, seed_l)))
+    ctx.register_table("s2", pa.table(bd.gen_chain_table(m, seed_r)))
+    expected = count(ctx, bd.QUERY)
+    print(f"{n} x {m} rows: count(*) {expected} on route {route_of(ctx)}; "
+          f"materialize_route_host picks the {default_route(n, m)} route by default")
+
+    def select(label, route, query=SELECT_STAR, warm=0):
+        out, cold = timed_select(torch, ctx, query)
+        if emit_route(ctx) != route:
+            fail(f"{label}: answered on route {emit_route(ctx)}, expected {route}")
+        ts = [timed_select(torch, ctx, query)[1] for _ in range(warm)]
+        line = f"{label}: {out.num_rows} rows on route {route}, first query {cold:.3f} s"
+        if ts:
+            med = float(np.median(ts))
+            line += (f", warm median {med * 1e3:.3f} ms over {warm} "
+                     f"({out.num_rows / med:.0f} rows/s) [{card}]")
+        print(line, flush=True)
+        return out
+
+    os.environ["SEQUILA_HOST_THRESHOLD"] = HOST_ROUTE
+    host = select("select * host", "host", warm=MAT_WARM_QUERIES)
+    ref = checksum([host])
+    if ref[0] != expected:
+        fail(f"host route: {ref[0]} rows, count(*) says {expected}")
+    host_left = checksum([select("left join host", "host", LEFT_JOIN)])
+    del host
+
+    os.environ["SEQUILA_HOST_THRESHOLD"] = "0"
+    launches = reset_launches()
+    merge = select("select * device merge", "merge")
+    torch.cuda.synchronize()
+    ran = launches()
+    print(f"device merge route: kernel launches {ran}")
+    for kname in ("pack_view", "merge_rank_sorted"):
+        if ran[kname] <= 0:
+            fail(f"kernel {kname} was not launched by the merge emission route")
+    if checksum([merge]) != ref:
+        fail(f"device merge route: (rows, checksum) {checksum([merge])} != host {ref}")
+    select("select * device merge", "merge", warm=MAT_WARM_QUERIES)
+
+    def same_rows(label, out):
+        if not out.arrow.equals(merge.arrow):
+            fail(f"{label}: rows differ from the merge route's")
+        print(f"{label}: equal to the merge route row for row")
+
+    os.environ["SEQUILA_EMIT_BACKEND"] = "cosort"
+    same_rows("cosort", select("select * device cosort", "sort", warm=MAT_WARM_QUERIES))
+    del os.environ["SEQUILA_EMIT_BACKEND"]
+    ctx.sql("SET sequila.interval_join_low_memory = true")
+    ctx.sql(f"SET sequila.max_output_batch_size = {STREAM_BATCH}")
+    same_rows("low memory", select("select * device low memory", "merge"))
+    ctx.sql("SET sequila.interval_join_low_memory = false")
+    for alg, route in (("Lapper", "window"), ("IntervalTree", "bsearch")):
+        ctx.sql(f"SET sequila.interval_join_algorithm = {alg}")
+        got = checksum([select(f"select * device {alg}", route)])
+        if got != ref:
+            fail(f"{alg} ({route}): (rows, checksum) {got} != host {ref}")
+        print(f"{alg} ({route}): checksum equals the host route's")
+    ctx.sql("SET sequila.interval_join_algorithm = Coitrees")
+    got = checksum([select("left join device", "merge", LEFT_JOIN)])
+    if got != host_left:
+        fail(f"left join: (rows, checksum) {got} != host {host_left}")
+    print(f"left join: {got[0]} rows, checksum equals the host route's")
+    return ctx, expected, ref
+
+
+def phase_emission_parts(torch, ctx, card, err):
+    print("== phase 5a': emission strategies and the level-bounds pass", flush=True)
+    from sequila_tpu_torch.exec.context import ExecContext
+    from sequila_tpu_torch.ops import interval_join as ij
+    from sequila_tpu_torch.ops.cuda import merge_count as mc
+
+    join = interval_join_of(ctx.plan_sql(SELECT_STAR))
+    left, right = ctx.table("s1"), ctx.table("s2")
+    index = join._prepare(ExecContext(ctx.config), left, right)[0]
+    plan = join._merge_bounds_plan(left, right, index)
+    lb, ub = mc.merge_level_bounds(plan)
+    packed = ij._counts_and_nnz(lb, ub).cpu().numpy()
+    total, nnz = int(packed[:-2].astype(np.int64).sum()), int(packed[-2])
+    chosen = ij.emission_strategy(total, nnz, *lb.shape)
+    print(f"{index.num_levels} levels {index.level_sizes}; {total} pairs, {nnz} runs, "
+          f"bounds {tuple(lb.shape)}: the rule picks '{chosen}'")
+    first = None
+    rule = ij.emission_strategy
+    for strategy in STRATEGIES:
+        ij.emission_strategy = lambda *a, s=strategy: s
+        try:
+            ij.materialize_pairs_from_bounds(index, lb, ub)
+            ts = []
+            for _ in range(MAT_WARM_QUERIES):
+                t0 = time.perf_counter()
+                b, p, _ = ij.materialize_pairs_from_bounds(index, lb, ub)
+                ts.append(time.perf_counter() - t0)
+        finally:
+            ij.emission_strategy = rule
+        med = float(np.median(ts))
+        if first is None:
+            first = (b, p)
+        elif not (np.array_equal(b, first[0]) and np.array_equal(p, first[1])):
+            fail(f"emission strategy {strategy} gives other pairs than {STRATEGIES[0]}")
+        print(f"strategy {strategy}: {med * 1e3:.3f} ms (median of "
+              f"{MAT_WARM_QUERIES}) [{card}]", flush=True)
+
+    # the 2 + 2L pack_view launches of one level-bounds pass, each held
+    # against its plain version on the same inputs: the two probe views
+    # (PAD slots to BUILD_PAD) and every level slice (PAD to PROBE_PAD)
+    def pack(k, v, c, pad, label):
+        got = mc.pack_view(k, v, c, pad)
+        d = max_diff(torch, got, mc.pack_view_plain(k, v, c, pad))
+        err["pack_view"] = max(err["pack_view"], d)
+        if d:
+            fail(f"pack_view on {label} of {k.numel()} rows: max |diff| {d}")
+        return got
+
+    levels, _, _, _, _, c_bj2, c_bj1 = plan[:7]
+    q_e = pack(*plan[1:3], plan[7], mc.BUILD_PAD, "the probe end view")
+    q_s = pack(*plan[3:5], plan[8], mc.BUILD_PAD, "the probe start view")
+    packs = [(pack(k, s, c_bj2, mc.PROBE_PAD, "a level slice's starts"),
+              pack(k, e, c_bj1, mc.PROBE_PAD, "a level slice's ends"))
+             for k, s, e in (lv for lv in levels if lv is not None)]
+    print(f"pack_view: equal to its plain version on the 2 probe views and "
+          f"{2 * len(packs)} level slices of "
+          f"{min((a.numel() for a, _ in packs), default=0)} to "
+          f"{max((a.numel() for a, _ in packs), default=0)} rows")
+    for a_s, a_e in packs:
+        for a, q, strict in ((a_s, q_e, False), (a_e, q_s, True)):
+            d = max_diff(torch, mc.merge_rank_sorted(a, q, strict=strict),
+                         mc.merge_rank_plain(a, q, strict=strict))
+            err["merge_rank_sorted"] = max(err["merge_rank_sorted"], d)
+            if d:
+                fail(f"merge_rank_sorted on a level slice of {a.numel()} rows: max |diff| {d}")
+
+    def level_pass(rank):
+        return lambda: [(rank(a_s, q_e, strict=False), rank(a_e, q_s, strict=True))
+                        for a_s, a_e in packs]
+
+    p1 = time_events(torch, level_pass(mc.merge_rank_plain), TIMED_LAUNCHES)
+    k1 = time_events(torch, level_pass(mc.merge_rank_sorted), TIMED_LAUNCHES)
+    k2 = time_events(torch, level_pass(mc.merge_rank_sorted), TIMED_LAUNCHES)
+    p2 = time_events(torch, level_pass(mc.merge_rank_plain), TIMED_LAUNCHES)
+    print(f"level-bounds pass ({2 * len(packs)} B1 launches, M={q_e.numel()}): kernel "
+          f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms [{card}]", flush=True)
+
+
+def stage_ms(torch, fn):
+    """(last result, median ms) of ``fn`` over MAT_WARM_QUERIES calls after
+    one warm call, host clock, the device synchronised."""
+    out = fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(MAT_WARM_QUERIES):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return out, float(np.median(ts)) * 1e3
+
+
+def phase_stages(torch, ctx, card):
+    print("== phase 5d: where the 15M-row SELECT * time goes", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    from sequila_tpu_torch.exec.context import ExecContext
+    from sequila_tpu_torch.ops import interval_join as ij
+    from sequila_tpu_torch.ops.cuda import merge_count as mc
+
+    join = interval_join_of(ctx.plan_sql(SELECT_STAR))
+    left, right = ctx.table("s1"), ctx.table("s2")
+    ectx = ExecContext(ctx.config)
+
+    def stage(label, fn):
+        out, ms = stage_ms(torch, fn)
+        print(f"{label}: median {ms:.3f} ms [{card}]", flush=True)
+        return out
+
+    os.environ["SEQUILA_HOST_THRESHOLD"] = "0"
+    index = stage("device: _prepare (keys, bounds, index memo)",
+                  lambda: join._prepare(ectx, left, right))[0]
+    plan = stage("device: bounds plan (memo hit)",
+                 lambda: join._merge_bounds_plan(left, right, index))
+    lb, ub = stage("device: merge_level_bounds (B1, pack_view, scatter)",
+                   lambda: mc.merge_level_bounds(plan))
+    packed = stage("device: counts and nnz to the host",
+                   lambda: ij._counts_and_nnz(lb, ub).cpu().numpy())
+    b, p, total = stage("device: pairs to the host (the rule's strategy, probe ids included)",
+                        lambda: ij.materialize_pairs_from_bounds(index, lb, ub))
+    stage("device: probe ids alone (host RLE)", lambda: ij._probe_ids(packed[:-2], total))
+    stage("device: output assembly (arrow take of both sides)",
+          lambda: join._assemble(left, right, b, p))
+    stage("device: whole ctx.sql", lambda: ctx.sql(SELECT_STAR))
+    os.environ["SEQUILA_HOST_THRESHOLD"] = HOST_ROUTE
+    hidx, hr, hs, he = stage("host: _host_index (memo hit, keys, bounds)",
+                             lambda: join._host_index(ectx, left, right))
+    stage("host: counts_offsets", lambda: hidx.counts_offsets(hr, hs, he))
+    stage("host: fused emission (counts included)",
+          lambda: join._fused_host_inner(hidx, left, right, hr, hs, he))
+    stage("host: whole ctx.sql", lambda: ctx.sql(SELECT_STAR))
+
+    os.environ["SEQUILA_HOST_THRESHOLD"] = "0"
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(MAT_WARM_QUERIES):
+                ctx.sql(SELECT_STAR)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type.name == "CUDA") / 1e3
+    except RuntimeError as e:  # a measurement, not a check: no tracer, no share
+        print(f"device busy share: not measured ({e})")
+        return
+    if not dev:
+        print("device busy share: not measured (the profiler saw no device time)")
+        return
+    print(f"device route under torch.profiler: {MAT_WARM_QUERIES} queries, wall "
+          f"{wall:.3f} ms, device time {dev:.3f} ms, busy share "
+          f"{100 * dev / wall:.2f} % [{card}]", flush=True)
+
+
+def phase_routing(torch, sessions, card):
+    print("== phase 5e: both materialization routes with a large build side", flush=True)
+    import pyarrow as pa
+
+    from sequila_tpu_torch import bench_data as bd
+    from sequila_tpu_torch.session import SessionContext
+
+    t1 = sessions[1][3]  # the genome pair's build table
+    n = len(t1["contig"])
+    for m, seed in ROUTE_PROBES:
+        t2 = bd.gen_genome_table(m, seed)
+        got = {}
+        for route, thr in (("host", HOST_ROUTE), ("merge", "0")):
+            os.environ["SEQUILA_HOST_THRESHOLD"] = thr
+            # a fresh session: the first query pays the route's own index build
+            ctx = SessionContext(device="cuda")
+            ctx.register_table("s1", pa.table(t1))
+            ctx.register_table("s2", pa.table(t2))
+            out, cold = timed_select(torch, ctx, SELECT_STAR)
+            if emit_route(ctx) != route:
+                fail(f"{n} x {m}: answered on route {emit_route(ctx)}, expected {route}")
+            warm = float(np.median([timed_select(torch, ctx, SELECT_STAR)[1]
+                                    for _ in range(MAT_WARM_QUERIES)]))
+            got[route] = checksum([out])
+            print(f"{n} x {m} select * route {route}: {out.num_rows} rows, first query "
+                  f"{cold * 1e3:.3f} ms, warm median {warm * 1e3:.3f} ms over "
+                  f"{MAT_WARM_QUERIES} [{card}]", flush=True)
+            del out, ctx
+        if got["merge"] != got["host"]:
+            fail(f"{n} x {m}: device (rows, checksum) {got['merge']} != host {got['host']}")
+        print(f"{n} x {m}: checksums equal; materialize_route_host picks the "
+              f"{default_route(n, m)} route by default")
+
+
+def stream_pass(ctx, query, check):
+    """(rows, checksum or None, largest batch, seconds) of one sql_batches
+    run; with ``check`` every batch is checksummed, and a batch above the
+    cap must hold the matches of one probe row."""
+    cap = 4 * STREAM_BATCH
+    rows, acc, biggest = 0, 0, 0
+    t0 = time.perf_counter()
+    for b in ctx.sql_batches(query):
+        rows += b.num_rows
+        biggest = max(biggest, b.num_rows)
+        if check:
+            acc = (acc + checksum([b])[1]) % 2**64
+            if b.num_rows > cap:
+                probe = b.arrow.select([4, 5]).group_by(["pos_start", "pos_end"]).aggregate([])
+                if probe.num_rows > 1:
+                    fail(f"a batch of {b.num_rows} rows > {cap} spans "
+                         f"{probe.num_rows} probe intervals")
+    return rows, (acc if check else None), biggest, time.perf_counter() - t0
+
+
+def phase_stream(sessions, card):
+    print("== phase 5b: sql_batches of SELECT * over the chr1 pair", flush=True)
+    name, ctx, expected, t1, t2 = sessions[0]
+    print(f"materialize_route_host picks the "
+          f"{default_route(len(t1['contig']), len(t2['contig']))} route by default")
+    ctx.sql(f"SET sequila.max_output_batch_size = {STREAM_BATCH}")
+    sums = {}
+    for route, thr in (("merge", "0"), ("host", HOST_ROUTE)):
+        os.environ["SEQUILA_HOST_THRESHOLD"] = thr
+        rows, acc, biggest, dt = stream_pass(ctx, SELECT_STAR, check=True)
+        if emit_route(ctx) != route:
+            fail(f"{name} sql_batches: answered on route {emit_route(ctx)}, expected {route}")
+        if rows != expected:
+            fail(f"{name} sql_batches on route {route}: {rows} rows, expected {expected}")
+        sums[route] = acc
+        warm, _, _, wdt = stream_pass(ctx, SELECT_STAR, check=False)
+        print(f"{name} sql_batches route {route}: {rows} rows, largest batch {biggest}; "
+              f"checked run {dt:.3f} s, warm run {wdt:.3f} s ({warm / wdt:.0f} rows/s) "
+              f"[{card}]", flush=True)
+    if sums["merge"] != sums["host"]:
+        fail(f"{name} sql_batches: device checksum {sums['merge']} != host {sums['host']}")
+    print(f"{name} sql_batches: device and host checksums equal")
+
+
+def phase_copy(mat_ctx, expected, ref):
+    print("== phase 5c: COPY of the 15M-row join to a parquet directory", flush=True)
+    import shutil
+    import tempfile
+
+    import pyarrow.parquet as pq
+
+    os.environ["SEQUILA_HOST_THRESHOLD"] = "0"
+    out_dir = tempfile.mkdtemp(prefix="sequila_copy_")
+    try:
+        t0 = time.perf_counter()
+        wrote = int(mat_ctx.sql(
+            f"COPY ({SELECT_STAR}) TO '{out_dir}/' STORED AS PARQUET").column_np(0)[0])
+        dt = time.perf_counter() - t0
+        if emit_route(mat_ctx) != "merge":
+            fail(f"COPY answered on route {emit_route(mat_ctx)}")
+        back = checksum([pq.read_table(out_dir)])
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    if wrote != expected or back != ref:
+        fail(f"COPY wrote {wrote} rows, read back (rows, checksum) {back}, "
+             f"expected {expected} rows and {ref}")
+    print(f"COPY: {wrote} rows written in {dt:.3f} s, read back with the same checksum")
+
+
 def phase_q1():
-    print("== phase 5: q1 fixture through the port's CLI", flush=True)
+    print("== phase 6: q1 fixture through the port's CLI", flush=True)
     res = subprocess.run(
         [sys.executable, "-m", "sequila_tpu_torch.cli",
          "--file", "queries/q1-coitrees.sql"],
@@ -585,6 +1022,13 @@ def main() -> None:
     phase_level(torch, sessions, card)
     resident_launches, resident_cols = phase_resident(torch, dev)
     kernel_ms, _ = phase_times(torch, sessions, card, err, resident_cols)
+    mat_ctx, mat_expected, mat_ref = phase_materialize(torch, card)
+    phase_emission_parts(torch, mat_ctx, card, err)
+    phase_stream(sessions, card)
+    phase_copy(mat_ctx, mat_expected, mat_ref)
+    phase_stages(torch, mat_ctx, card)
+    phase_routing(torch, sessions, card)
+    os.environ.pop("SEQUILA_HOST_THRESHOLD", None)
     phase_q1()
     if "jax" in sys.modules:
         fail("the port imported jax")

@@ -4,12 +4,20 @@ Role-equivalent of the reference's IntervalJoinExec (reference
 joins/interval_join.rs:71-594): a build/probe range-overlap join keyed on
 equi-columns.  Build side = LEFT, probe side = RIGHT.
 
-The port carries the count(*) path of sequila_tpu/exec/joins/
-interval_join.py, every route of it, on the operator's torch ``device``
-(the kernels' plain PyTorch versions run only when that device is the CPU):
-- below the host threshold, every join (count and materializing inner or
-  outer joins) runs on the native C++ host index, as in the JAX package;
-- above it, count(*) takes the JAX package's routes in its order:
+The port carries the count(*) and materializing paths of sequila_tpu/
+exec/joins/interval_join.py on the operator's torch ``device`` (the
+kernels' plain PyTorch versions run only when that device is the CPU):
+- below the host threshold, every join runs on the native C++ host index,
+  as in the JAX package;
+- a materializing join (``execute``, inner or outer) and its streamed
+  twin (``execute_batches``: sql_batches, COPY) take the host route when
+  ``materialize_route_host`` says so; otherwise pairs come from per-level
+  device bounds: the merge-rank bounds on CUDA kernel B1
+  (ops/cuda/merge_count.plan_level_bounds) for the 'sort' strategy, or
+  the co-sort, bsearch or window chunks
+  (``SEQUILA_EMIT_BACKEND=cosort`` forces the co-sort); the route that
+  answered is recorded as ``emit_route_<name>``;
+- above the threshold, count(*) takes the JAX package's routes in its order:
   ``SEQUILA_COUNT_BACKEND=stream`` tries the stream backend
   (ops/cuda/stream_rank.py, CUDA kernel B2), ``merge`` (the default) the
   merge backend (ops/cuda/merge_count.py, CUDA kernel B1); a shape either
@@ -20,9 +28,9 @@ interval_join.py, every route of it, on the operator's torch ``device``
   ``ctx.metrics`` records the route that answered under the operator's id
   (``count_route_<name>``).
 
-Materialization above the threshold, streaming, nearest and per-probe
-counts, and Partitioned mode raise NotImplementedError naming their
-ROADMAP.md item; none is rerouted quietly.
+Nearest and per-probe counts, and Partitioned mode raise
+NotImplementedError naming their ROADMAP.md item; none is rerouted
+quietly.
 
 Semantics parity contract:
 - end-inclusive i32 intervals; strict </> already normalized to `end - 1`
@@ -35,6 +43,7 @@ Semantics parity contract:
 from __future__ import annotations
 
 import os as _os
+from contextlib import nullcontext
 
 import numpy as np
 import pyarrow as pa
@@ -70,11 +79,61 @@ _ALG_METHOD = {
 }
 
 
+# Defaults of materialize_route_host's device terms, fit to the first
+# query on fresh tables, which decides a fetch or a COPY run once: on an
+# H100 80GB HBM3 at 700 W, SELECT * of a 2,350,965-row genome build took
+# 1988.7 ms on the device route and 526.9 ms on the host route against
+# 100,000 probe rows, and 2870.3 and 1107.9 ms against 1,000,000
+# (PERF.md section 6).  With the host term fixed, those two gaps give 474
+# ns a probe row (20 bytes at 42.19 MB/s: the device route's host-side
+# pair expansion, not a link) and 904 ns a build row (the level index,
+# built on the host and uploaded before the first device query).
+_LINK_RTT = 0.0
+_LINK_BW = 42.19e6
+_DEVICE_INDEX_S = 904e-9
+
+
 def _host_threshold() -> int:
     """At or below this many total rows the join runs on the host path
     (NumPy / C++).  SEQUILA_HOST_THRESHOLD=0 forces the device path
     everywhere."""
     return int(_os.environ.get("SEQUILA_HOST_THRESHOLD", 65536))
+
+
+def materialize_route_host(n: int, m: int) -> bool:
+    """Host-vs-device routing for MATERIALIZING joins (cost model).
+
+    A materializing query's pairs end up on the host whichever route
+    computes them (output assembly is an arrow take on the host), so the
+    device's advantage is only the bounds computation, against what its
+    route pays on top: round trips, the bytes of the counts (4 a probe
+    row) and of the compacted runs (about 8 a run, ~2 runs a probe row),
+    and the level index it builds on the host.  Compare the first-query
+    costs the two routes do NOT share:
+
+      host   = build sort (~14 ns x n log2 n) + probe searches
+               (~140 ns a probe row, threaded C++)
+      device = 2 RTT + (4 x m + 8 x 2m) bytes / link bandwidth
+               + level index (~904 ns a build row)
+
+    SEQUILA_LINK_RTT (s) and SEQUILA_LINK_BW (bytes/s) set the link terms;
+    their defaults and the index term are fit to first queries on the
+    H100, where the host route won at every pairing measured, and at
+    these defaults it wins at every size.  SEQUILA_HOST_THRESHOLD=0
+    forces the device route, and inputs at or below the threshold keep
+    the unconditional host route."""
+    import math
+
+    thr = _host_threshold()
+    if thr == 0:
+        return False
+    if n + m <= thr:
+        return True
+    rtt = float(_os.environ.get("SEQUILA_LINK_RTT", _LINK_RTT))
+    bw = float(_os.environ.get("SEQUILA_LINK_BW", _LINK_BW))
+    host_cost = 14e-9 * n * math.log2(max(n, 2)) + 140e-9 * m
+    device_cost = 2 * rtt + (4.0 * m + 8.0 * 2 * m) / bw + _DEVICE_INDEX_S * n
+    return host_cost <= device_cost
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -783,20 +842,302 @@ class IntervalJoinExec(ExecPlan):
             raise _not_ported("Partitioned mode (target_partitions > 1)", "A9")
 
     def execute(self, ctx):
-        """Materializing join: the host route at or below the threshold."""
+        """Materializing join (inner or outer): the host route when
+        ``materialize_route_host`` says so, else pairs from the device
+        bounds, one output batch per emission chunk.  ``ctx.metrics``
+        records the route that answered (``emit_route_<name>``: host,
+        merge, or the rank strategy sort, bsearch or window)."""
         self._check_collect_left()
         if self.algorithm.is_nearest:
             raise _not_ported("the nearest join", "A6")
         left = self.children[0].execute(ctx)
         right = self.children[1].execute(ctx)
-        if not self._use_host(left, right):
-            raise _not_ported(
-                "the materializing interval join above the host threshold", "A3"
-            )
-        return self._execute_host(ctx, left, right)
+        op = self.op_id()
+        m = right.num_rows
+        if materialize_route_host(left.num_rows, m):
+            ctx.metrics.add(op, "emit_route_host")
+            return self._execute_host(ctx, left, right)
+
+        index, rcodes, rs, re = self._prepare(ctx, left, right)
+        method = _ALG_METHOD[self.algorithm]
+        chunk = (
+            max(1, ctx.config.max_output_batch_size // 100)
+            if self.low_memory
+            else _FULL_MODE_CHUNK
+        )
+        out_cap = 4 * ctx.config.max_output_batch_size if self.low_memory else None
+        if self.low_memory and method == "window":
+            method = "sort"
+        inner = self.join_type == "inner"
+        parts: list[Table] = []
+        all_b, all_p = [], []
+
+        with ctx.timer(op, "join_time"):
+            gen, route = self._pair_chunks(left, right, index, rcodes, rs, re,
+                                           method, chunk, out_cap)
+            ctx.metrics.add(op, f"emit_route_{route}")
+            for lo, b_rows, p_rows in gen:
+                if inner:
+                    # one output batch per emission chunk; int32 row
+                    # indices pass straight to arrow take
+                    parts.append(self._assemble(left, right, b_rows, p_rows + lo))
+                else:
+                    all_b.append(b_rows.astype(np.int64))
+                    all_p.append(p_rows.astype(np.int64) + lo)
+            if inner:
+                if parts:
+                    out = Table(pa.concat_tables([p.arrow for p in parts]))
+                else:
+                    out = self._assemble(
+                        left, right, np.empty(0, np.int64), np.empty(0, np.int64)
+                    )
+            else:
+                b = np.concatenate(all_b) if all_b else np.empty(0, np.int64)
+                p = np.concatenate(all_p) if all_p else np.empty(0, np.int64)
+                out = finish_join(self.join_type, left, right, b, p)
+        ctx.metrics.add(op, "output_rows", out.num_rows)
+        ctx.metrics.add(op, "input_rows", m)
+        return out
+
+    def _pair_chunks(self, left, right, index, rcodes, rs, re, method, chunk, cap):
+        """(generator of (probe_lo, build_rows, probe_rows_local) chunks,
+        route name): the merge-rank bounds for the 'sort' strategy when
+        the plan engages (SEQUILA_EMIT_BACKEND=merge, the default), else
+        the co-sort / bsearch / window chunks."""
+        if method == "sort":
+            # sort-free merge-rank bounds: the whole probe's [lb, ub) in 2L
+            # B1 launches over the cached sorted views — no device sort
+            plan = self._merge_bounds_plan(left, right, index)
+            if plan is not None:
+                return self._merge_pair_chunks(index, plan, cap), "merge"
+        gen = self._device_pair_chunks(index, rcodes, rs, re, method, chunk, cap)
+        return gen, method
 
     def execute_batches(self, ctx):
-        raise _not_ported("streamed interval-join output (sql_batches, COPY)", "A4")
+        """Streaming execution of the inner join: output batches of at
+        most ~4x max_output_batch_size rows (more only where one probe row
+        alone has more matches), so a full-genome SELECT * never
+        materializes at once — the reference's batch-at-a-time emission
+        (interval_join.rs:1338-1420).  Outer joins need the whole pair set
+        (NULL padding, global anti sets) and fall back to one batch, as
+        does nearest, which raises there."""
+        if self.algorithm.is_nearest or self.join_type != "inner":
+            yield self.execute(ctx)
+            return
+        self._check_collect_left()
+        left = self.children[0].execute(ctx)
+        right = self.children[1].execute(ctx)
+        cap = max(4 * ctx.config.max_output_batch_size, 1)
+        m = right.num_rows
+        op = self.op_id()
+        n_out = 0
+        if materialize_route_host(left.num_rows, m):
+            ctx.metrics.add(op, "emit_route_host")
+            hidx, rcodes, rs, re = self._host_index(ctx, left, right)
+            with ctx.timer(op, "join_time"):
+                # generator CONSTRUCTION runs the qualification and counts
+                # pass — timed like the pair path times its counts
+                fused = self._fused_host_batches(hidx, left, right, rcodes, rs, re, cap)
+            if fused is not None:
+                outs = self._timed_tables(ctx, fused)
+            else:
+                gen = self._host_pair_chunks(hidx, rcodes, rs, re, cap)
+                outs = self._timed_assembled(ctx, left, right, gen)
+        else:
+            index, rcodes, rs, re = self._prepare(ctx, left, right)
+            method = _ALG_METHOD[self.algorithm]
+            if method == "window":
+                # bounded emission needs exact-count buffers (level path)
+                method = "sort"
+            # probe chunk sized from the cardinality estimate: chunk ~
+            # cap / E[matches per probe row] hits the output cap in one
+            # try (each halving costs a counts pass); no estimate ->
+            # assume ~4 matches a row; the halving loop bounds dense
+            # regions either way
+            est = self.statistics().num_rows
+            if not est.is_absent and est.value and m:
+                avg = max(float(est.value) / m, 0.25)
+                chunk = int(min(max(cap / avg, 1), _FULL_MODE_CHUNK))
+            else:
+                chunk = max(1, cap // 4)
+            gen, route = self._pair_chunks(left, right, index, rcodes, rs, re,
+                                           method, chunk, cap)
+            ctx.metrics.add(op, f"emit_route_{route}")
+            outs = self._timed_assembled(ctx, left, right, gen)
+        for out in outs:
+            n_out += out.num_rows
+            yield out
+        if n_out == 0:
+            yield self._assemble(left, right, np.empty(0, np.int64), np.empty(0, np.int64))
+        ctx.metrics.add(op, "output_rows", n_out)
+        ctx.metrics.add(op, "input_rows", m)
+
+    def _timed_tables(self, ctx, gen):
+        """Accrue join_time around table production only (the fused
+        generator's analog of _timed_assembled)."""
+        while True:
+            with ctx.timer(self.op_id(), "join_time"):
+                out = next(gen, None)
+            if out is None:
+                return
+            yield out
+
+    def _timed_assembled(self, ctx, left, right, gen):
+        """Assemble (lo, b, p) chunks into output Tables, accruing
+        join_time around production and gather only — never the consumer
+        time spent while the generator is suspended at yield."""
+        while True:
+            out = None
+            with ctx.timer(self.op_id(), "join_time"):
+                item = next(gen, None)
+                if item is not None:
+                    lo, b_rows, p_rows = item
+                    out = self._assemble(left, right, b_rows, p_rows + lo)
+            if out is None:
+                return
+            yield out
+
+    def _merge_bounds_plan(self, left: Table, right: Table, index):
+        """Sort-free merge-rank plan for EMISSION bounds
+        (ops/cuda/merge_count.plan_level_bounds), or None.
+
+        Preconditions are the count path's minus the degenerate-probe and
+        inverted-build data checks: the level-run identity is exact for
+        every query and row shape.  SEQUILA_EMIT_BACKEND=cosort forces the
+        co-sort bounds."""
+        from sequila_tpu_torch.models.table import merge_dictionaries
+        from sequila_tpu_torch.ops.cuda import merge_count as mc
+        from sequila_tpu_torch.planner.expr import Column
+
+        if _os.environ.get("SEQUILA_EMIT_BACKEND", "merge") != "merge":
+            return None
+        if len(self.on) != 1 or left.num_rows == 0 or right.num_rows == 0:
+            return None
+        l_on, r_on = self.on[0]
+        if not (isinstance(l_on, Column) and isinstance(r_on, Column)):
+            return None
+        if left.column(l_on.index).null_count or right.column(r_on.index).null_count:
+            return None
+        bs_cd = self._bound_col_delta(self.intervals.left_interval.start, left)
+        be_cd = self._bound_col_delta(self.intervals.left_interval.end, left)
+        qs_cd = self._bound_col_delta(self.intervals.right_interval.start, right)
+        qe_cd = self._bound_col_delta(self.intervals.right_interval.end, right)
+        if None in (bs_cd, be_cd, qs_cd, qe_cd):
+            return None
+        _, lvals, _ = left.dict_codes(l_on.index)
+        _, rvals, _ = right.dict_codes(r_on.index)
+        if len(lvals) and len(rvals) and type(lvals[0]) is not type(rvals[0]):
+            return None  # str-coercing merge would break monotone remaps
+
+        # plan memo (the count path's 'mcount' memo): valid() pins the
+        # index identity, so a cache miss in _prepare invalidates the plan
+        def build():
+            remap_b, remap_q = merge_dictionaries(lvals, rvals)
+            views = (
+                left.per_key_minmax(l_on.index, bs_cd[0]),
+                left.per_key_minmax(l_on.index, be_cd[0]),
+                right.per_key_minmax(r_on.index, qs_cd[0]),
+                right.per_key_minmax(r_on.index, qe_cd[0]),
+            )
+            return index, mc.plan_level_bounds(
+                index, right, r_on.index, qs_cd, qe_cd, bs_cd, be_cd,
+                remap_b, remap_q, views,
+            )
+
+        _, plan = left.paired_memo(
+            ("mbplan", l_on.index, r_on.index, bs_cd, be_cd, qs_cd, qe_cd,
+             str(self.device), id(right)),
+            right,
+            build,
+            valid=lambda v: v[0] is index,
+        )
+        return plan
+
+    def _merge_pair_chunks(self, index, plan, cap: int | None):
+        """Yield (probe_lo, build_rows, probe_rows_local) pair chunks from
+        the merge-rank bounds — the sort-free twin of _device_pair_chunks.
+
+        Bounds for the WHOLE probe are computed once (2L B1 launches);
+        ``cap`` then slices them into emission chunks by the exact
+        per-probe counts, so the ranks are never recomputed."""
+        from sequila_tpu_torch.ops.cuda import merge_count as mc
+        from sequila_tpu_torch.ops.interval_join import (
+            _counts_and_nnz,
+            materialize_pairs_from_bounds,
+        )
+
+        lb, ub = mc.merge_level_bounds(plan)
+        if cap is None:
+            b, p, total = materialize_pairs_from_bounds(index, lb, ub)
+            if total:
+                yield 0, b, p
+            return
+        counts = _counts_and_nnz(lb, ub)[:-2].cpu().numpy()
+        cum = np.concatenate([[0], np.cumsum(counts, dtype=np.int64)])
+        m = len(counts)
+        lo = 0
+        while lo < m:
+            # widest probe range whose pair total fits the cap (always
+            # advance by at least one probe row); all-zero stretches of
+            # `cum` advance in one step
+            hi = max(int(np.searchsorted(cum, cum[lo] + cap, side="right")) - 1, lo + 1)
+            if cum[hi] > cum[lo]:
+                b, p, total = materialize_pairs_from_bounds(
+                    index, lb[:, lo:hi], ub[:, lo:hi]
+                )
+                if total:
+                    yield lo, b, p
+            lo = hi
+
+    def _device_pair_chunks(
+        self, index, rcodes, rs, re, method: str, chunk: int, out_cap: int | None
+    ):
+        """Yield (probe_lo, build_rows, probe_rows_local) pair chunks from
+        the device bounds, produced one chunk ahead on a worker thread so
+        that chunk N+1's device work overlaps chunk N's arrow assembly.
+
+        When ``out_cap`` bounds the emission (low-memory and streaming
+        modes), a probe chunk whose pair count exceeds the cap is halved
+        before it materializes — the reference's capped emission and
+        batch-slice continuation (interval_join.rs:1433-1579).  The window
+        emission sizes its buffer by CANDIDATES (a superset of matches), so
+        bounded callers pass a level strategy, whose buffer is exactly the
+        match count.  The worker launches on the same device and on its
+        default stream, so its work is ordered with the caller's; an
+        exception there reaches the caller through ``fut.result()``."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from sequila_tpu_torch.ops.interval_join import materialize_pairs
+
+        m = len(rcodes)
+        b_inv = bool((index._he < index._hs).any())
+        dev = self.device
+
+        def produce(lo: int):
+            rows = min(chunk, m - lo)
+            with torch.cuda.device(dev) if dev.type == "cuda" else nullcontext():
+                qk, qs, qe = self._probe_chunk(rcodes, rs, re, lo, rows, dev)
+                if out_cap is not None:
+                    while rows > 1:
+                        est = total_count_i64(count_matches(
+                            index, qk, qs, qe,
+                            self._chunk_count_method(rs, re, lo, rows, method, b_inv),
+                        ))
+                        if est <= out_cap:
+                            break
+                        rows = max(1, rows // 2)
+                        qk, qs, qe = self._probe_chunk(rcodes, rs, re, lo, rows, dev)
+                b_rows, p_rows, total = materialize_pairs(index, qk, qs, qe, method)
+            return lo, rows, b_rows, p_rows, total
+
+        with ThreadPoolExecutor(1) as ex:
+            fut = ex.submit(produce, 0) if m > 0 else None
+            while fut is not None:
+                lo, rows, b_rows, p_rows, total = fut.result()
+                nxt = lo + rows
+                fut = ex.submit(produce, nxt) if nxt < m else None
+                if total > 0:
+                    yield lo, b_rows, p_rows
 
     def count_rows(self, ctx) -> int:
         """Exact output cardinality without materializing pairs — the

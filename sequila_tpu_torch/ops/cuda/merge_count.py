@@ -23,6 +23,11 @@ both passes and cancel; probe PAD slots (0xFFFFFFFE, above every real
 pack) are counted by neither pass.  Exact for non-degenerate probes and
 non-inverted builds — the operator routes those away first.
 
+The same two kernels give the materializing join its emission bounds
+(``plan_level_bounds`` / ``merge_level_bounds``): per level of the
+interval index, the packed level slice is the table and the packed probe
+views are the queries, two rank passes a level, exact for every shape.
+
 Packed views are carried in int32 tensors holding the u32 bit patterns:
 PyTorch implements few operators for ``torch.uint32``, and the kernels read
 the buffers as unsigned.  Each wrapper launches its CUDA kernel for a CUDA
@@ -253,3 +258,118 @@ def merge_count_passes(
     r1 = merge_rank_sorted(a1, q1, strict=False, reduce=True)
     r2 = merge_rank_sorted(a2, q2, strict=True, reduce=True)
     return r1 - r2
+
+
+# ---------------------------------------------------------------------------
+# Merge-based level bounds: pair emission without device sorts
+# ---------------------------------------------------------------------------
+
+
+def plan_level_bounds(index, probe, r_key, qs_cd, qe_cd, bs_cd, be_cd,
+                      remap_b, remap_q, views):
+    """Per-level merge-rank plan for emission bounds, or None.
+
+    Each level slice of the build index is sorted by (key, start) and, by
+    the monotone-end level invariant, also by (key, end), so both bounds
+    of every level rank the cached sorted probe views inside an already
+    sorted packed-u32 array: 2L ``merge_rank_sorted`` launches and no
+    device sort.  Exact for every query shape (degenerate stabbing probes,
+    inverted build rows): the level-run identity needs no BITS subset
+    argument, so this route is wider than the merge count.
+
+    ``index``: IntervalIndex over JOINT key codes with the planner's ±lit
+    bound deltas already applied to its stored starts and ends, so the
+    index-side C tables carry delta 0 while the domains span the raw
+    extrema plus delta.  ``views`` = per-LOCAL-code extrema of the four raw
+    columns (Table.per_key_minmax order: bs, be, qs, qe); ``*_cd`` =
+    (column index, delta).  The plan lives on ``index.device``.  Port of
+    sequila_tpu/ops/pallas/merge_count.py::plan_level_bounds; the CUDA B1
+    reads no chunk windows, so the level slices are views of the index's
+    device arrays, unpadded.
+    """
+    nkeys = int(max(remap_b.max(initial=-1), remap_q.max(initial=-1))) + 1
+    if nkeys <= 0 or index.n_rows == 0:
+        return None
+    bs_mm, be_mm, qs_mm, qe_mm = views
+    d_bs, d_be, d_qs, d_qe = bs_cd[1], be_cd[1], qs_cd[1], qe_cd[1]
+    # domain 2 packs build starts against probe ends; domain 1 packs
+    # build ends against probe starts — the count path's pairing
+    d2 = _joint_domain(
+        remap_b, remap_q, nkeys, bs_mm[0], bs_mm[1], d_bs, qe_mm[0], qe_mm[1], d_qe
+    )
+    d1 = _joint_domain(
+        remap_b, remap_q, nkeys, be_mm[0], be_mm[1], d_be, qs_mm[0], qs_mm[1], d_qs
+    )
+    if d1 is None or d2 is None:
+        return None
+    dev = index.device
+    ident = np.arange(nkeys, dtype=np.int32)
+    # index levels store raw+delta values -> joint-key C tables with delta
+    # 0; probe views store raw values -> local-code C tables with the
+    # planner delta folded in
+    c_bj2 = c_tab_tensor(_c_tab(ident, *d2, 0), dev)
+    c_bj1 = c_tab_tensor(_c_tab(ident, *d1, 0), dev)
+    c_qe = c_tab_tensor(_c_tab(remap_q, *d2, d_qe), dev)
+    c_qs = c_tab_tensor(_c_tab(remap_q, *d1, d_qs), dev)
+
+    pqe_k, pqe_v, _, _, n = probe.sorted_interval_view(r_key, qe_cd[0], dev)
+    pqs_k, pqs_v, _, _, _ = probe.sorted_interval_view(r_key, qs_cd[0], dev)
+    # the views' real rows lead and their PAD slots trail, so the orders
+    # (real rows only) scatter the first n ranks and nothing else
+    ord_qe, ord_qs = (
+        torch.from_numpy(probe.sorted_interval_order(r_key, c).astype(np.int64)).to(dev)
+        for c in (qe_cd[0], qs_cd[0])
+    )
+    levels = []
+    for lv in range(index.num_levels):
+        if index.level_sizes[lv] == 0:
+            levels.append(None)
+            continue
+        lo, hi = index.level_offsets[lv], index.level_offsets[lv] + index.level_pad[lv]
+        levels.append((index.keys[lo:hi], index.starts[lo:hi], index.ends[lo:hi]))
+    return (
+        levels, pqe_k, pqe_v, pqs_k, pqs_v, c_bj2, c_bj1, c_qe, c_qs,
+        ord_qe, ord_qs, n,
+    )
+
+
+def _level_rank_pair(k_l, s_l, e_l, q_e, q_s, c_bj2, c_bj1):
+    """One level's (ub, lb) ranks of the packed probe views: ub ranks the
+    probe ends among the level's starts (#{start <= qe}), lb the probe
+    starts among its ends (#{end < qs}).  The level's PAD rows pack to the
+    table sentinel, above every real query."""
+    a_s = pack_view(k_l, s_l, c_bj2, PROBE_PAD)
+    a_e = pack_view(k_l, e_l, c_bj1, PROBE_PAD)
+    ub = merge_rank_sorted(a_s, q_e, strict=False)
+    lb = merge_rank_sorted(a_e, q_s, strict=True)
+    return ub, lb
+
+
+def _scatter_bounds(ub_stack, lb_stack, ord_qe, ord_qs, n: int):
+    """Per-pass sorted-order ranks [L, m_pad] back to probe row order
+    [L, n]: the views' PAD slots (the tail past n) are cut before the
+    scatter, so every index lands in range (the JAX package drops them
+    with an out-of-range index instead)."""
+    lb = torch.empty((lb_stack.shape[0], n), dtype=torch.int32, device=lb_stack.device)
+    ub = torch.empty_like(lb)
+    ub[:, ord_qe] = ub_stack[:, :n]
+    lb[:, ord_qs] = lb_stack[:, :n]
+    return lb, ub
+
+
+def merge_level_bounds(plan):
+    """Run the plan: per-level [lb, ub) emission bounds, [L, n] int32 in
+    PROBE ROW order (n = the probe's real rows) — drop-in for
+    ops/interval_join.overlap_bounds.  The probe views are packed once
+    for all levels."""
+    (levels, pqe_k, pqe_v, pqs_k, pqs_v, c_bj2, c_bj1, c_qe, c_qs,
+     ord_qe, ord_qs, n) = plan
+    q_e = pack_view(pqe_k, pqe_v, c_qe, BUILD_PAD)
+    q_s = pack_view(pqs_k, pqs_v, c_qs, BUILD_PAD)
+    zero = torch.zeros_like(q_e)
+    ubs, lbs = [], []
+    for lv in levels:
+        ub, lb = (zero, zero) if lv is None else _level_rank_pair(*lv, q_e, q_s, c_bj2, c_bj1)
+        ubs.append(ub)
+        lbs.append(lb)
+    return _scatter_bounds(torch.stack(ubs), torch.stack(lbs), ord_qe, ord_qs, n)

@@ -24,12 +24,17 @@ in each level:
 Levels are peeled on the host with a running-max pass (``assign_levels``,
 numpy, copied); their number is the maximum containment depth of the data.
 
+**Window view** (Lapper's max-extension emission): keys, starts, ends and
+original row positions sorted by (key, start), plus the largest interval
+length.
+
 The padding (``_bucket``) and the field layout are the JAX package's, so
-both packages build identical arrays from one input.  What only emission
-and the genomic verbs read — the window and coverage views, the per-level
-maximum lengths and the host twins of the level view — and the fixed
-``layout`` of a partitioned build are not ported yet (ROADMAP.md A3, A7,
-A9).
+both packages build identical arrays from one input.  The level view keeps
+numpy host twins of its keys, starts, ends and positions (emission expands
+device bounds into build rows on the host through ``pos_host``) and each
+level's maximum length.  The coverage
+view the genomic verbs read and the fixed ``layout`` of a partitioned
+build are not ported yet (ROADMAP.md A7, A9).
 """
 
 from __future__ import annotations
@@ -104,6 +109,7 @@ class IntervalIndex:
         self.n_rows = len(self._hk)
         self._bits = None
         self._lvl = None
+        self._win = None
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -159,9 +165,11 @@ class IntervalIndex:
             P0 = np.full(total, -1, np.int32)
             self._lvl = dict(
                 level_sizes=(0,), level_pad=level_pad, level_offsets=(0,),
+                max_lens=(0,),
                 levels=self._to_device(np.zeros(total, np.int32)),
                 keys=self._to_device(K0), starts=self._to_device(V0),
                 ends=self._to_device(V0), pos=self._to_device(P0),
+                pos_host=P0, keys_host=K0, starts_host=V0, ends_host=V0,
             )
             return
 
@@ -187,6 +195,7 @@ class IntervalIndex:
         E = np.full(total, PAD_VAL, np.int32)
         P = np.full(total, -1, np.int32)
         L = np.zeros(total, np.int32)
+        max_lens = []
         row = 0
         for lv in range(num_levels):
             sz = level_sizes[lv]
@@ -196,6 +205,9 @@ class IntervalIndex:
             E[off : off + sz] = e[row : row + sz]
             P[off : off + sz] = pos[row : row + sz]
             L[off : off + level_pad[lv]] = lv
+            max_lens.append(
+                int(np.max(e[row : row + sz] - s[row : row + sz])) if sz else 0
+            )
             row += sz
 
         d = self._to_device
@@ -203,7 +215,9 @@ class IntervalIndex:
             level_sizes=level_sizes,
             level_pad=level_pad,
             level_offsets=level_offsets,
+            max_lens=tuple(max_lens),
             levels=d(L), keys=d(K), starts=d(S), ends=d(E), pos=d(P),
+            pos_host=P, keys_host=K, starts_host=S, ends_host=E,
         )
 
     def _lvl_get(self, name):
@@ -218,6 +232,15 @@ class IntervalIndex:
     starts = property(lambda self: self._lvl_get("starts"))
     ends = property(lambda self: self._lvl_get("ends"))
     pos = property(lambda self: self._lvl_get("pos"))
+    max_lens = property(lambda self: self._lvl_get("max_lens"))
+    # numpy twins of the level view: pos_host expands device bounds into
+    # build rows on the host; keys/starts/ends are the JAX index's fields,
+    # from which its merge-bounds plan packs level slices (the port's plan
+    # slices the device arrays instead)
+    pos_host = property(lambda self: self._lvl_get("pos_host"))
+    keys_host = property(lambda self: self._lvl_get("keys_host"))
+    starts_host = property(lambda self: self._lvl_get("starts_host"))
+    ends_host = property(lambda self: self._lvl_get("ends_host"))
 
     @property
     def num_levels(self) -> int:
@@ -226,6 +249,30 @@ class IntervalIndex:
     @property
     def padded_size(self) -> int:
         return int(sum(self.level_pad))
+
+    # -- window view (Lapper-style max-extension emission) -----------------
+    @property
+    def window_view(self):
+        """((key, start)-sorted keys, starts, ends, pos tensors, max_len):
+        padded to ``_bucket(n)`` with (PAD_KEY, PAD_VAL, PAD_VAL, -1)."""
+        if self._win is None:
+            n = self.n_rows
+            n0 = _bucket(max(n, 1))
+            k = np.full(n0, PAD_KEY, np.int32)
+            s = np.full(n0, PAD_VAL, np.int32)
+            e = np.full(n0, PAD_VAL, np.int32)
+            p = np.full(n0, -1, np.int32)
+            max_len = 0
+            if n:
+                order = np.lexsort((self._hs, self._hk))
+                k[:n] = self._hk[order]
+                s[:n] = self._hs[order]
+                e[:n] = self._he[order]
+                p[:n] = order.astype(np.int32)
+                max_len = int(np.max(self._he.astype(np.int64) - self._hs))
+            d = self._to_device
+            self._win = (d(k), d(s), d(e), d(p), max_len)
+        return self._win
 
 
 def build_interval_index(

@@ -1,5 +1,5 @@
-"""Interval-join counts over the level index (port of the count half of
-sequila_tpu/ops/interval_join.py).
+"""Interval-join counts and pair emission over the level index (port of
+sequila_tpu/ops/interval_join.py, nearest aside).
 
 1. ``overlap_bounds`` — for every probe row and every index level, the
    contiguous match run ``[lb, ub)`` via two level-local lexicographic
@@ -10,6 +10,11 @@ sequila_tpu/ops/interval_join.py).
 3. ``counts_bits_fused`` — the whole count(*) of a resident table pair in
    one pass: remap, two ranks, reduce, plus the number of degenerate probe
    rows that force the caller onto the level path.
+4. ``materialize_pairs`` / ``materialize_pairs_from_bounds`` — exact
+   (build row, probe row) pairs of a probe chunk, probe-major and
+   level-minor, with one of three representations crossing to the host
+   (compacted runs, whole bounds, or emitted rows); Lapper's window
+   strategy emits from candidate windows of the (key, start)-sorted view.
 
 These were XLA programs in the JAX package, not Pallas kernels, and are
 plain torch ops here.  Two strategies of the JAX package become:
@@ -24,11 +29,21 @@ JAX's int32-only reductions (64-bucket partials) are int64 sums here.
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
+from sequila_tpu_torch.errors import ExecutionError
+from sequila_tpu_torch.native.loader import expand_runs, repeat_counts
 from sequila_tpu_torch.ops.interval_index import IntervalIndex
 from sequila_tpu_torch.ops.ranks import composite, rank_lex_sort
+
+INT32_MIN = -(2**31)
+
+# Materialization guard: one probe chunk may not emit >= 2^31 pairs (int32
+# row indices).  Module constant so regression tests can lower it.
+_EMIT_LIMIT = 2**31
 
 # ---------------------------------------------------------------------------
 # Bounds (lb, ub) per level
@@ -222,3 +237,297 @@ def count_matches(index: IntervalIndex, qk, qs, qe, method: str = "sort"):
         )
     lb, ub = overlap_bounds(index, qk, qs, qe, method)
     return counts_from_bounds(lb, ub)
+
+
+# ---------------------------------------------------------------------------
+# Pair emission (exact materializing join)
+# ---------------------------------------------------------------------------
+
+
+def pair_offsets(lb, ub):
+    """Probe-major exclusive-scan offsets over per-(probe,level) counts.
+
+    Returns (offsets[m*L + 1] int32, lb_pm[m*L]): output slots of probe row i
+    occupy [offsets[i*L], offsets[(i+1)*L]) ordered by level then start.
+    int32 offsets are exact because callers guard totals by _EMIT_LIMIT.
+    """
+    counts_pm = torch.clamp(ub - lb, min=0).T.reshape(-1)
+    offsets = torch.cat([
+        torch.zeros(1, dtype=torch.int32, device=lb.device),
+        torch.cumsum(counts_pm, 0, dtype=torch.int32),
+    ])
+    return offsets, lb.T.reshape(-1)
+
+
+def emit_pairs(
+    offsets, lb_pm, pos, base=0, *, capacity: int, num_levels: int, level_offsets
+):
+    """Materialize (build_row, probe_row) index pairs into a buffer of
+    ``capacity`` slots starting at slot ``base``.
+
+    For output slot j: locate its (probe, level) cell by ranking j in the
+    offsets array, then the match is the (j - cell_offset)-th element of the
+    cell's contiguous run.  Returns (build_rows, probe_rows, valid) of
+    length ``capacity``; slots >= total are masked invalid (-1).
+    """
+    L = num_levels
+    dev = offsets.device
+    total = offsets[-1]
+    slots = torch.arange(capacity, dtype=torch.int32, device=dev) + base
+    flat = torch.searchsorted(offsets, slots, right=True).to(torch.int32) - 1
+    flat_c = torch.clamp(flat, 0, lb_pm.numel() - 1).long()
+    probe_row = (flat_c // L).to(torch.int32)
+    lvl = flat_c % L
+    r = slots - offsets[flat_c]
+    offs = torch.tensor(level_offsets, dtype=torch.int32, device=dev)
+    g = offs[lvl] + lb_pm[flat_c] + r
+    build_row = pos[torch.clamp(g, 0, pos.numel() - 1).long()]
+    valid = slots < total
+    return (
+        torch.where(valid, build_row, -1),
+        torch.where(valid, probe_row, -1),
+        valid,
+    )
+
+
+def sat_sub_i32(qs, max_len):
+    """``qs - max(max_len, 0)`` saturated at INT32_MIN, as int32.
+
+    The JAX package saturates a wrapped int32 difference (x64 is off
+    there); torch subtracts in int64 and clamps, which gives the same
+    values."""
+    ml = torch.clamp(torch.as_tensor(max_len, dtype=torch.int64, device=qs.device), min=0)
+    return torch.clamp(qs.to(torch.int64) - ml, min=INT32_MIN).to(torch.int32)
+
+
+def _window_ranks(keys, starts, qk, lo_q, qe):
+    """[lb, ub) candidate runs of each query in the (key, start)-sorted
+    window view: starts in [lo_q, qe] within the query's key segment."""
+    b = composite(keys, starts)
+    lb = torch.searchsorted(b, composite(qk, lo_q)).to(torch.int32)
+    ub = torch.searchsorted(b, composite(qk, qe), right=True).to(torch.int32)
+    return lb, ub
+
+
+def _emit_window(keys, starts, ends, pos, lo_q, qk, qs, qe, *, capacity: int):
+    """Lapper-style max-extension window emission: candidates are the
+    contiguous run of starts in [qs - max_len, qe] within the key segment
+    (rust-lapper's layered scan idea); an end mask filters the true
+    matches — exact for every query shape, including degenerate stabbing.
+    ``lo_q`` is the saturated window floor (``sat_sub_i32``).  Returns
+    (build_rows, probe_rows, valid) of ``capacity`` slots."""
+    lb, ub = _window_ranks(keys, starts, qk, lo_q, qe)
+    widths = torch.clamp(ub - lb, min=0)
+    dev = keys.device
+    offsets = torch.cat([
+        torch.zeros(1, dtype=torch.int32, device=dev),
+        torch.cumsum(widths, 0, dtype=torch.int32),
+    ])
+    total = offsets[-1]
+    slots = torch.arange(capacity, dtype=torch.int32, device=dev)
+    cell = torch.searchsorted(offsets, slots, right=True) - 1
+    cell = torch.clamp(cell, 0, qk.numel() - 1)
+    r = slots - offsets[cell]
+    g = torch.clamp(lb[cell] + r, 0, pos.numel() - 1).long()
+    match = (slots < total) & (ends[g] >= qs[cell])
+    return (
+        torch.where(match, pos[g], -1),
+        torch.where(match, cell.to(torch.int32), -1),
+        match,
+    )
+
+
+def materialize_pairs_window(index: IntervalIndex, qk, qs, qe):
+    """Exact pair materialization via the candidate-window strategy:
+    (build_rows, probe_rows) host int32 arrays and their count."""
+    keys, starts, ends, pos, max_len = index.window_view
+    lo_q = sat_sub_i32(qs, max_len)
+    lb, ub = _window_ranks(keys, starts, qk, lo_q, qe)
+    # int64: a dense whole-genome window can exceed int32
+    total_cand = int(torch.clamp(ub.to(torch.int64) - lb, min=0).sum())
+    if total_cand == 0:
+        return np.empty(0, np.int32), np.empty(0, np.int32), 0
+    if total_cand >= _EMIT_LIMIT:
+        raise ExecutionError(
+            f"window emission would scan {total_cand} candidates (>= 2^31); "
+            "enable sequila.interval_join_low_memory or reduce the batch"
+        )
+    b_rows, p_rows, valid = _emit_window(
+        keys, starts, ends, pos, lo_q, qk, qs, qe, capacity=total_cand
+    )
+    b = b_rows[valid].cpu().numpy()
+    p = p_rows[valid].cpu().numpy()
+    return b, p, len(b)
+
+
+def _expand_runs_host(pos_host, g0, cnts, total: int):
+    """Expand contiguous runs (global start, length) into build rows.
+
+    Runs arrive probe-major, level-minor; elements ascend within each run —
+    the exact order ``emit_pairs`` produces — so the emission strategies
+    are interchangeable bit-for-bit.  The C path is one linear pass of
+    memcpys; the NumPy fallback stays all-int32 (total < 2^31 by the
+    caller guard)."""
+    out = expand_runs(g0, cnts, pos_host, total)
+    if out is not None:
+        return out
+    run_end = np.cumsum(cnts, dtype=np.int32)
+    g = np.repeat(g0 - run_end + cnts, cnts)
+    g += np.arange(total, dtype=np.int32)
+    return pos_host[g]
+
+
+def _expand_bounds_host(index: IntervalIndex, lbh, ubh, total: int):
+    """Expand per-(probe,level) [L, m] host bounds into build rows.
+
+    Empty (probe,level) cells — most of them — are filtered before the
+    repeats."""
+    offs = np.asarray(index.level_offsets, dtype=np.int32)
+    cnts_flat = np.maximum(ubh - lbh, 0).T.ravel()
+    nz = cnts_flat.nonzero()[0]
+    g0 = (lbh + offs[:, None]).T.ravel()[nz]  # global run start per cell
+    return _expand_runs_host(index.pos_host, g0, cnts_flat[nz], total)
+
+
+def _counts_and_nnz(lb, ub):
+    """Per-probe counts with the nonzero-cell count and the max run length
+    appended — one packed int32 array, so the sizing and packing decisions
+    cost a single fetch."""
+    c = torch.clamp(ub - lb, min=0)
+    counts = c.sum(0, dtype=torch.int32)
+    nnz = (c > 0).sum().to(torch.int32)
+    maxrun = c.max() if c.numel() else torch.zeros((), dtype=torch.int32, device=c.device)
+    return torch.cat([counts, nnz[None], maxrun[None].to(torch.int32)])
+
+
+def _compact_runs(lb, ub, *, capacity: int, level_offsets, pack16: bool):
+    """Compact the nonzero (probe,level) cells of [L, m] bounds into ONE
+    array — ``capacity`` run starts followed by the run lengths —
+    probe-major order preserved.  With ``pack16`` (every run shorter than
+    2^16; ``capacity`` even) two lengths share an int32 lane, lo | hi << 16.
+
+    Empty cells, and cells past ``capacity``, scatter into one extra slot
+    that is cut off: torch has no dropping scatter, and an out-of-range
+    index would fault the device."""
+    offs = torch.tensor(level_offsets, dtype=torch.int32, device=lb.device)[:, None]
+    cnts_pm = torch.clamp(ub - lb, min=0).T.reshape(-1)
+    g0_pm = (lb + offs).T.reshape(-1)
+    nz = cnts_pm > 0
+    pos = torch.cumsum(nz, 0, dtype=torch.int32) - 1
+    idx = torch.where(nz & (pos < capacity), pos, capacity).long()
+
+    def scatter(vals):
+        out = torch.zeros(capacity + 1, dtype=torch.int32, device=lb.device)
+        return out.scatter_(0, idx, vals)[:capacity]
+
+    out_g = scatter(g0_pm)
+    out_c = scatter(cnts_pm)
+    if pack16:
+        out_c = out_c[0::2] | (out_c[1::2] << 16)
+    return torch.cat([out_g, out_c])
+
+
+def _unpack16(packed: np.ndarray, nnz: int) -> np.ndarray:
+    """First ``nnz`` uint16 lanes of an int32 array packed as lo | hi<<16.
+
+    The uint16 view is a zero-copy unpack on a little-endian host; a
+    big-endian host takes the explicit mask-and-interleave path."""
+    if sys.byteorder == "little":
+        return packed.view(np.uint16)[:nnz]
+    out = np.empty(2 * len(packed), np.int32)
+    out[0::2] = packed & 0xFFFF
+    out[1::2] = (packed >> 16) & 0xFFFF
+    return out[:nnz]
+
+
+def _probe_ids(counts, total: int):
+    """RLE-expand per-probe match counts into probe row ids (the reference
+    expands the probe side host-side too, interval_join.rs:1593-1617)."""
+    p = repeat_counts(counts, total)
+    if p is None:
+        p = np.repeat(np.arange(len(counts), dtype=np.int32), counts.astype(np.int64))
+    return p
+
+
+def _to_host_async(t: torch.Tensor):
+    """Start a copy of ``t`` to the host and return a function that waits
+    for it and gives the copy as a numpy array: the pinned buffer may be
+    read only after the copy's event."""
+    if t.device.type == "cpu":
+        return t.numpy
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(t.device))
+
+    def wait() -> np.ndarray:
+        event.synchronize()
+        return host.numpy()
+
+    return wait
+
+
+def emission_strategy(total: int, nnz: int, num_levels: int, m: int) -> str:
+    """Which representation of the pairs crosses to the host: 'runs' (the
+    compacted nonzero cells) when they are fewer than half the pairs and
+    the cells, 'bounds' (the whole [L, m] lb/ub) when the cells are fewer
+    than half the pairs, else 'emit' (the build rows themselves)."""
+    cells = 2 * num_levels * m
+    if 2 * nnz < min(total, cells):
+        return "runs"
+    if cells < total:
+        return "bounds"
+    return "emit"
+
+
+def materialize_pairs(index: IntervalIndex, qk, qs, qe, method: str = "sort"):
+    """Full exact join of one probe chunk: host int32 (build_rows,
+    probe_rows) and their count, by the algorithm's rank strategy."""
+    if method == "window":
+        return materialize_pairs_window(index, qk, qs, qe)
+    lb, ub = overlap_bounds(index, qk, qs, qe, method)
+    return materialize_pairs_from_bounds(index, lb, ub)
+
+
+def materialize_pairs_from_bounds(index: IntervalIndex, lb, ub):
+    """Exact join from per-(probe,level) device bounds [L, m].
+
+    One fetch brings the per-probe counts (plus nnz and the longest run);
+    the probe side is RLE-expanded on the host, overlapping the transfer of
+    the build side's representation, which ``emission_strategy`` picks
+    ('runs', 'bounds' or 'emit').  Every strategy yields the same rows in
+    the same order: probe-major, level-minor, ascending within a run.  The
+    JAX package sizes buffers to XLA buckets; the port sizes them exactly."""
+    packed = _counts_and_nnz(lb, ub).cpu().numpy()
+    counts, nnz, maxrun = packed[:-2], int(packed[-2]), int(packed[-1])
+    total = int(counts.astype(np.int64).sum())
+    if total >= _EMIT_LIMIT:
+        raise ExecutionError(
+            f"probe chunk would materialize {total} pairs (>= 2^31); "
+            "enable sequila.interval_join_low_memory or reduce the batch"
+        )
+    if total == 0:
+        return np.empty(0, np.int32), np.empty(0, np.int32), 0
+    L, m = lb.shape
+    strategy = emission_strategy(total, nnz, L, m)
+    if strategy == "runs":
+        cap = nnz + (nnz & 1)  # pack16 pairs lanes
+        pack16 = maxrun < (1 << 16)
+        wait = _to_host_async(_compact_runs(
+            lb, ub, capacity=cap, level_offsets=index.level_offsets, pack16=pack16,
+        ))
+        p = _probe_ids(counts, total)  # overlaps the transfer
+        runs = wait()
+        cnt = _unpack16(runs[cap:], nnz) if pack16 else runs[cap : cap + nnz]
+        return _expand_runs_host(index.pos_host, runs[:nnz], cnt, total), p, total
+    if strategy == "bounds":
+        wait = _to_host_async(torch.cat([lb, ub]))
+        p = _probe_ids(counts, total)
+        bounds = wait()
+        return _expand_bounds_host(index, bounds[:L], bounds[L:], total), p, total
+    offsets, lb_pm = pair_offsets(lb, ub)
+    build_rows, _, _ = emit_pairs(
+        offsets, lb_pm, index.pos, capacity=total,
+        num_levels=index.num_levels, level_offsets=index.level_offsets,
+    )
+    return build_rows.cpu().numpy(), _probe_ids(counts, total), total

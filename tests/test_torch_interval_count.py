@@ -5,7 +5,8 @@ tests/test_merge_count.py (planner ±1 deltas, negative coordinates,
 missing keys, dense ties, probe larger and smaller than build), on the
 same arrow tables; counts compare exactly.  Shapes the merge plan declines
 take the co-sort and level routes in both packages and compare exactly;
-the routes off the count(*) slice raise NotImplementedError naming their
+materialization and streaming above the threshold match the JAX package,
+and the routes not ported yet raise NotImplementedError naming their
 ROADMAP.md item instead of rerouting.
 """
 
@@ -203,17 +204,36 @@ class TestDeclinedShapesRaise:
         assert tjoin.count_rows(TorchCtx(TorchConfig())) == 0
 
 
+def _rows(t):
+    cols = [t.arrow.column(i).to_pylist() for i in range(t.arrow.num_columns)]
+    return list(zip(*cols))
+
+
 class TestOffSliceRoutesRaise:
+    """Routes off the ported slices raise NotImplementedError naming their
+    ROADMAP.md item; materialization (A3) and streaming (A4) are ported
+    and now match the JAX package (the class keeps its name)."""
+
     def test_materialize_above_threshold(self, rng, monkeypatch):
         monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "0")
-        tjoin, _, _ = _join("torch", *_tables(rng, 100, 100))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
-            tjoin.execute(TorchCtx(TorchConfig()))
+        lt, rt = _tables(rng, 100, 100)
+        jjoin, _, _ = _join("jax", lt, rt)
+        tjoin, _, _ = _join("torch", lt, rt)
+        got = tjoin.execute(TorchCtx(TorchConfig()))
+        want = jjoin.execute(JaxCtx(SequilaConfig()))
+        assert got.num_rows > 0 and _rows(got) == _rows(want)
 
-    def test_streamed_batches(self, rng):
-        tjoin, _, _ = _join("torch", *_tables(rng, 100, 100))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-            next(tjoin.execute_batches(TorchCtx(TorchConfig())))
+    def test_streamed_batches(self, rng, monkeypatch):
+        monkeypatch.setenv("SEQUILA_MAX_OUTPUT_BATCH_SIZE", "50")
+        lt, rt = _tables(rng, 100, 100)
+        jjoin, _, _ = _join("jax", lt, rt)
+        tjoin, _, _ = _join("torch", lt, rt)
+        got = list(tjoin.execute_batches(TorchCtx(TorchConfig())))
+        want = list(jjoin.execute_batches(JaxCtx(SequilaConfig())))
+        assert len(got) > 1 and all(b.num_rows <= 200 for b in got)
+        assert sorted(r for b in got for r in _rows(b)) == sorted(
+            r for b in want for r in _rows(b)
+        )
 
     def test_per_probe_counts(self, rng):
         tjoin, _, _ = _join("torch", *_tables(rng, 100, 100))
@@ -222,7 +242,8 @@ class TestOffSliceRoutesRaise:
 
     def test_partitioned_mode(self, rng):
         tjoin, _, _ = _join("torch", *_tables(rng, 100, 100), mode="Partitioned")
-        for run in (tjoin.count_rows, tjoin.execute):
+        for run in (tjoin.count_rows, tjoin.execute,
+                    lambda ctx: next(tjoin.execute_batches(ctx))):
             with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
                 run(TorchCtx(TorchConfig()))
 
@@ -232,6 +253,9 @@ class TestOffSliceRoutesRaise:
         tjoin.algorithm = Algorithm.COITREES_NEAREST
         with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
             tjoin.execute(TorchCtx(TorchConfig()))
+        # streamed nearest falls back to one batch, which raises the same
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+            next(tjoin.execute_batches(TorchCtx(TorchConfig())))
 
     def test_host_materialize_matches_jax(self, rng):
         """Below the threshold a materializing inner join runs on the host
