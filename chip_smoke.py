@@ -15,11 +15,18 @@ Phases, each of which exits non-zero when it fails:
    (key, value) builds with duplicate runs across chunks and PAD tails,
    both ``strict`` values, B2 up to the genome shapes and B3 up to its
    2^20-row cap with 2.35 M queries, each also against one global
-   torch.searchsorted rank (which a bad window would miss);
+   torch.searchsorted rank (which a bad window would miss); B1's
+   segmented launch (merge_rank_segments), one launch a case, with ranks
+   through a random permutation and sums, both ``strict`` values: one
+   segment at every B1 shape, two (inline) at the genome count shape, and
+   ten edge segments (empty table, empty queries, a 1-row table, tables
+   far larger and far smaller than their queries, duplicate runs longer
+   than a tile, both sentinels, raw and packed tables);
 4. main path: ``SessionContext(device="cuda").sql(count(*) overlap join)``
    on the synthetic databio chr1 pair and on the whole-genome pair, checked
    against the known counts and an independent numpy BITS count; the merge
-   route must answer and its kernels' launch counters rise;
+   route must answer and its kernels' launch counters rise; a warm
+   count(*) must launch B1 once (both BITS passes) and pack_view 4 times;
 4b. the other count backends on both pairs: SEQUILA_COUNT_BACKEND=stream
    (B2's counter must rise) and =cosort (no B1 or B2 launch), the same
    counts, each route asserted through the operator's route metric;
@@ -31,11 +38,13 @@ Phases, each of which exits non-zero when it fails:
    2.35 M queries) against ``rank_lex_sort``;
    then the warm time of every route on the genome pair and each kernel's
    time against its plain version (CUDA events, turns plain, kernel,
-   kernel, plain), beside the card's name and power limit;
+   kernel, plain), then one PyTorch call of the same function where there
+   is one (torch.searchsorted), and the kernel's bound (the bytes it must
+   move over 3.35 TB/s), beside the card's name and power limit;
 5a. the materializing ``SELECT *`` at the 15M-row pairing
    (``gen_chain_table(20_000, 13)`` x ``gen_chain_table(300_000, 14)``):
    the host route for reference, then the device route on the merge
-   emission bounds (B1's and pack_view's launch counters must rise), whose
+   emission bounds (exactly 1 B1 and 2 pack_view launches), whose
    rows must number the join's count(*) and whose order-independent
    checksum must equal the host route's; SEQUILA_EMIT_BACKEND=cosort and
    the low-memory capped chunks must equal it row for row, Lapper (window)
@@ -43,9 +52,10 @@ Phases, each of which exits non-zero when it fails:
    host route's checksum; each route asserted through the operator's
    route metric (``emit_route_<name>``); warm times of both routes;
 5a'. the three emission strategies on that join's merge bounds (equal
-   pairs, each timed), its level-bounds pass of 2 + 2L pack_view launches
-   (each equal to its plain version on the same inputs) and 2L B1 launches
-   (each equal, then timed against their plain version with CUDA events);
+   pairs, each timed), its level-bounds pass: the 2 probe-view pack_view
+   launches and the one B1 launch for every level and both bounds, each
+   equal to its plain version on the same inputs, the launch timed against
+   its plain version and its bound, and merge_level_bounds as a whole;
 5b. ``sql_batches`` of ``SELECT *`` over the chr1 pair with
    max_output_batch_size = 1,000,000 on the device and host routes:
    153,690,858 rows, batches of at most 4,000,000 rows unless one probe
@@ -80,8 +90,10 @@ CHR1_EXPECTED = 153_690_858
 GENOME_EXPECTED = 99_159_827
 Q1_EXPECTED = 16
 WARM_QUERIES = 10
-LEVEL_WARM_QUERIES = 3
+LEVEL_WARM_QUERIES = 2
 TIMED_LAUNCHES = 20
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 ZERO_LENGTH_SHARE = 0.01
 HALF_OPEN_QUERY = (
     "SELECT count(1) FROM s1 a JOIN s2 b ON a.contig = b.contig "
@@ -112,6 +124,8 @@ HOST_ROUTE = str(10**12)  # SEQUILA_HOST_THRESHOLD that keeps every join on the 
 STRATEGIES = ("runs", "bounds", "emit")
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "merge_rank_sorted": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:110"),
+    # B1's level mode: every level's pair of Pallas launches in one
+    "merge_level_ranks": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:615"),
     "pack_view": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:158"),
     "stream_rank_sorted": ("stream_rank.cu", "sequila_tpu/ops/pallas/stream_rank.py:86"),
     "rank_sorted_resident": ("rank_kernel.cu", "sequila_tpu/ops/pallas/rank_kernel.py:126"),
@@ -279,8 +293,94 @@ def phase_kernels(torch, dev) -> dict:
                      f"max |diff| {d}, sums {s_got} vs {s_want}")
         print(f"rank_sorted_resident n={n_pad} m={m}: ranks and sums equal the global "
               f"rank for strict=True/False")
+    segmented_cases(torch, dev, rng, err)
     torch.cuda.synchronize()
     return err
+
+
+def perm(torch, rng, n, dev):
+    return torch.from_numpy(rng.permutation(n).astype(np.int64)).to(dev)
+
+
+def check_segments(torch, label, segs, slots, err):
+    """One launch of ``segs`` over ``slots`` against the plain version on
+    copies of the same slots, exact."""
+    from sequila_tpu_torch.ops.cuda import merge_count as mc
+
+    want = tuple(t.clone() for t in slots)
+    before = mc.merge_rank_sorted.launches
+    mc.merge_rank_segments(mc.plan_segments(segs, slots[0].device), slots)
+    torch.cuda.synchronize()
+    if mc.merge_rank_sorted.launches != before + 1:
+        fail(f"segmented {label}: {mc.merge_rank_sorted.launches - before} launches, not 1")
+    mc.merge_rank_segments_plain(segs, want)
+    d = max(max_diff(torch, g, w) for g, w in zip(slots, want))
+    err["merge_rank_sorted"] = max(err["merge_rank_sorted"], d)
+    if d:
+        fail(f"segmented {label}: max |diff| {d} against the plain version")
+    print(f"segmented {label}: one launch, ranks through the orders and sums equal plain")
+
+
+def segmented_cases(torch, dev, rng, err):
+    """The segmented launch: S = 1 at every B1 shape, S = 2 at the genome
+    count shape, and one launch of many edge segments (empty table, empty
+    queries, a 1-row table, tables far larger and far smaller than their
+    queries, duplicate runs longer than a tile, both sentinels, raw and
+    packed tables), each segment with ranks through a random permutation
+    and a sum, both strict values."""
+    from sequila_tpu_torch.ops.cuda import merge_count as mc
+
+    for n, m in B1_SHAPES:
+        a, q = sorted_u32(rng, n, torch, dev), sorted_u32(rng, m, torch, dev)
+        for strict in (True, False):
+            s = mc.Segment(n, m, q=(1, 0), strict=strict, a=(0, 0), out=(2, 0),
+                           ord=perm(torch, rng, m, dev), total=(3, 0))
+            slots = (a, q, torch.full((m,), -1, dtype=torch.int32, device=dev),
+                     torch.zeros(1, dtype=torch.int64, device=dev))
+            check_segments(torch, f"S=1 N={n} M={m} strict={strict}", [s], slots, err)
+
+    n, m = B1_SHAPES[-2]
+    a1, q1, a2, q2 = (sorted_u32(rng, x, torch, dev) for x in (n, m, n, m))
+    for flip in (False, True):
+        segs = [s._replace(strict=s.strict != flip, out=(5, i * m), ord=perm(torch, rng, m, dev))
+                for i, s in enumerate(mc.count_segments(n, m, n, m))]
+        slots = (a1, q1, a2, q2, torch.zeros(2, dtype=torch.int64, device=dev),
+                 torch.full((2 * m,), -1, dtype=torch.int32, device=dev))
+        check_segments(torch, f"S=2 (inline) N={n} M={m} strict={[s.strict for s in segs]}",
+                       segs, slots, err)
+
+    cases = [  # (table rows, queries, raw table)
+        (0, 3000, False), (0, 257, True), (4000, 0, False), (1, 70_000, True),
+        (1, 1, False), (1_000_003, 37, False), (37, 1_000_003, True),
+        (50_000, 20_011, True), (20_011, 50_000, False), (7 * mc.TILE + 3, 5 * mc.TILE, False),
+    ]
+    for flip in (False, True):
+        tabs, qs, segs = [], [], []
+        a_off = q_off = 0
+        for i, (n, m, raw) in enumerate(cases):
+            a = sorted_u32(rng, n, torch, dev)
+            if i == len(cases) - 1 and n:  # duplicate runs longer than a tile
+                a = a[torch.arange(n, device=dev) // (3 * mc.TILE) * (3 * mc.TILE)]
+            q = sorted_u32(rng, m, torch, dev)
+            strict = (i % 2 == 1) != flip
+            common = dict(q=(1, q_off), strict=strict, out=(2, q_off), ord=perm(torch, rng, m, dev),
+                          total=(3, i))
+            if raw:  # the same packed values, as key codes and values through a C table
+                k = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(dev)
+                c = torch.tensor([7, -(2**31), 5], dtype=torch.int32, device=dev)
+                v = ((a.to(torch.int64) - c.to(torch.int64)[k.long()]) & 0xFFFFFFFF)
+                v = torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
+                segs.append(mc.Segment(n, m, raw=(k, v, c, mc.PROBE_PAD), **common))
+            else:
+                segs.append(mc.Segment(n, m, a=(0, a_off), **common))
+                tabs.append(a)
+                a_off += n
+            qs.append(q)
+            q_off += m
+        slots = (torch.cat(tabs), torch.cat(qs),
+                 torch.full((q_off,), -1, dtype=torch.int32, device=dev),
+                 torch.zeros(len(cases), dtype=torch.int64, device=dev))
+        check_segments(torch, f"S={len(segs)} edge segments (flip={flip})", segs, slots, err)
 
 
 def joint_codes(t1: dict, t2: dict):
@@ -317,6 +417,37 @@ def time_events(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes_: int, ops: int) -> tuple[float, str]:
+    """(ms, what bounds it): the least time an H100 SXM could take for the
+    work, the larger of the bytes over 3.35 TB/s and the operations over
+    67 T/s (the float32 rate outside the tensor cores in NVIDIA's data
+    sheet, taken for the integer compares and adds of these kernels)."""
+    t_bytes, t_ops = nbytes_ / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_kernel(torch, name, plain, kern, library, nbytes_, ops, shape, card) -> dict:
+    """CUDA-event times in turns plain, kernel, kernel, plain, then the
+    library call; with the bound of the same work."""
+    p1 = time_events(torch, plain, TIMED_LAUNCHES)
+    k1 = time_events(torch, kern, TIMED_LAUNCHES)
+    k2 = time_events(torch, kern, TIMED_LAUNCHES)
+    p2 = time_events(torch, plain, TIMED_LAUNCHES)
+    lib = time_events(torch, library, TIMED_LAUNCHES) if library is not None else None
+    b_ms, b_by = bound(nbytes_, ops)
+    k = (k1 + k2) / 2
+    print(f"{name} ({shape}): kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+          f"library {'none' if lib is None else f'{lib:.4f} ms'}, bound {b_ms:.4f} ms "
+          f"({b_by}, {nbytes_} bytes), {100 * b_ms / k:.1f} % of the bound [{card}]",
+          flush=True)
+    return {"ms": k, "plain_ms": (p1 + p2) / 2, "library_ms": lib, "bound_ms": b_ms,
+            "bound_by": b_by}
 
 
 def reset_launches():
@@ -399,6 +530,16 @@ def phase_main_path(torch, card):
     for kname in ("pack_view", "merge_rank_sorted"):
         if merge_launches[kname] <= 0:
             fail(f"kernel {kname} was not launched by the main path")
+    # a warm count(*): both BITS passes in one segmented B1 launch
+    name, ctx, expected, _, _ = sessions[1]
+    launches = reset_launches()
+    if count(ctx, bd.QUERY) != expected:
+        fail(f"{name}: the warm query's count differs")
+    torch.cuda.synchronize()
+    warm = launches()
+    if (warm["merge_rank_sorted"], warm["pack_view"]) != (1, 4):
+        fail(f"a warm merge count(*) launched {warm}, expected B1 once and pack_view 4 times")
+    print(f"warm {name} count(*): B1 launched once, pack_view 4 times")
     return sessions, merge_launches
 
 
@@ -517,6 +658,7 @@ def phase_times(torch, sessions, card, err, resident_cols):
     from sequila_tpu_torch.ops.cuda import rank_kernel as rk
     from sequila_tpu_torch.ops.cuda import stream_rank as sr
     from sequila_tpu_torch.ops.cuda.stream_rank import sorted_padded
+    from sequila_tpu_torch.ops.ranks import composite
 
     times = {}
     for name, ctx, expected, _, _ in sessions:
@@ -538,6 +680,8 @@ def phase_times(torch, sessions, card, err, resident_cols):
     bq_k, bq_v, c_bq, pq_k, pq_v, c_pq = plan[:6]
     q1 = mc.pack_view(bq_k, bq_v, c_bq, mc.BUILD_PAD)
     a1 = mc.pack_view(pq_k, pq_v, c_pq, mc.PROBE_PAD)
+    q2 = mc.pack_view(*plan[6:9], mc.BUILD_PAD)
+    a2 = mc.pack_view(*plan[9:12], mc.PROBE_PAD)
     l_on, r_on, bs_cd, be_cd, qs_cd, qe_cd = inputs[:6]
     pass_u, _ = sr.stream_pass_inputs(
         *join._stream_count_plan(left, right, *inputs),
@@ -554,38 +698,67 @@ def phase_times(torch, sessions, card, err, resident_cols):
           f"and to the global rank (windows of up to {int(pass_u[2].max())} chunks)")
     a_k, a_v, _ = sorted_padded(*resident_cols[:2], resident_cols[0].numel())
     r_k, r_v, _ = sorted_padded(*resident_cols[2:], resident_cols[2].numel())
-    cases = {
+    # the library yardsticks' inputs, built outside the timed window: u32
+    # bit patterns XOR the sign bit (signed order = unsigned order), and
+    # int64 (key, value) composites
+    a1_s, q1_s = (t ^ torch.tensor(-(2**31), dtype=torch.int32, device=t.device) for t in (a1, q1))
+    u_a, u_q = composite(pass_u[0][0], pass_u[0][1]), composite(*pass_u[3:])
+    r_a, r_q = composite(a_k, a_v), composite(r_k, r_v)
+    ranks1 = torch.empty(q1.numel(), dtype=torch.int32, device=q1.device)
+    cases = {  # name: (plain, kernel, library or None, bytes moved, operations, shape)
         "pack_view": (
             lambda: mc.pack_view_plain(pq_k, pq_v, c_pq, mc.PROBE_PAD),
             lambda: mc.pack_view(pq_k, pq_v, c_pq, mc.PROBE_PAD),
+            None, nbytes(pq_k, pq_v, c_pq) + 4 * pq_k.numel(), pq_k.numel(),
             f"n={pq_k.numel()}",
         ),
-        "merge_rank_sorted": (
-            lambda: mc.merge_rank_plain(a1, q1, strict=False, reduce=True),
-            lambda: mc.merge_rank_sorted(a1, q1, strict=False, reduce=True),
-            f"N={a1.numel()} M={q1.numel()} reduce=True",
+        "merge_rank_sorted": (  # the launch alone; the wrapper is timed below
+            lambda: mc.merge_rank_plain(a1, q1, strict=False),
+            mc.segments_launcher(mc.plan_segments(
+                [mc.Segment(a1.numel(), q1.numel(), q=(1, 0), strict=False, a=(0, 0),
+                            out=(2, 0))], a1.device), (a1, q1, ranks1)),
+            lambda: torch.searchsorted(a1_s, q1_s, right=True, out_int32=True, out=ranks1),
+            nbytes(a1, q1, ranks1), a1.numel() + q1.numel(),
+            f"N={a1.numel()} M={q1.numel()} ranks",
         ),
         "stream_rank_sorted": (
             lambda: sr.stream_rank_plain(*pass_u, strict=False, reduce=True),
             lambda: sr.stream_rank_sorted(*pass_u, strict=False, reduce=True),
+            lambda: torch.searchsorted(u_a, u_q, right=True),
+            nbytes(*pass_u) + 8, pass_u[0].shape[1] + pass_u[3].numel(),
             f"N={pass_u[0].shape[1]} M={pass_u[3].numel()} reduce=True, the genome "
             "pair's stream pass u",
         ),
         "rank_sorted_resident": (
             lambda: rk.rank_resident_plain(a_k, a_v, r_k, r_v, strict=True),
             lambda: rk.rank_sorted_resident(a_k, a_v, r_k, r_v, strict=True),
+            lambda: torch.searchsorted(r_a, r_q),
+            nbytes(a_k, a_v, r_k, r_v) + 4 * r_k.numel(), a_k.numel() + r_k.numel(),
             f"N={a_k.numel()} M={r_k.numel()} ranks",
         ),
     }
-    kernel_ms = {}
-    for kname, (plain, kern, shape) in cases.items():
-        p1 = time_events(torch, plain, TIMED_LAUNCHES)
-        k1 = time_events(torch, kern, TIMED_LAUNCHES)
-        k2 = time_events(torch, kern, TIMED_LAUNCHES)
-        p2 = time_events(torch, plain, TIMED_LAUNCHES)
-        kernel_ms[kname] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"{kname} (genome, {shape}): kernel {k1:.4f}/{k2:.4f} ms, "
-              f"plain {p1:.4f}/{p2:.4f} ms [{card}]")
+    kernel_ms = {name: time_kernel(torch, name, *case, card) for name, case in cases.items()}
+    # beside them: the wrapper with its host work, as the main path calls
+    # it, in ranks and (for continuity with the first design's records)
+    # reduce mode, and the count's two passes in one segmented launch
+    for reduce in (False, True):
+        time_kernel(
+            torch, f"merge_rank_sorted wrapper, reduce={reduce}",
+            lambda: mc.merge_rank_plain(a1, q1, strict=False, reduce=reduce),
+            lambda: mc.merge_rank_sorted(a1, q1, strict=False, reduce=reduce),
+            None, nbytes(a1, q1) + (8 if reduce else 4 * q1.numel()), a1.numel() + q1.numel(),
+            f"N={a1.numel()} M={q1.numel()}", card)
+    segs = mc.count_segments(a1.numel(), q1.numel(), a2.numel(), q2.numel())
+    totals = torch.zeros(2, dtype=torch.int64, device=a1.device)
+    time_kernel(
+        torch, "merge_count_passes' B1 launch (both passes)",
+        lambda: mc.merge_rank_segments_plain(segs, (a1, q1, a2, q2, totals)),
+        mc.segments_launcher(mc.plan_segments(segs, a1.device), (a1, q1, a2, q2, totals)),
+        None, nbytes(a1, q1, a2, q2) + 16, a1.numel() + q1.numel() + a2.numel() + q2.numel(),
+        "S=2, sums", card)
+    whole = time_events(torch, lambda: mc.merge_count_passes(*plan[:12]), TIMED_LAUNCHES)
+    print(f"merge_count_passes whole (4 pack_view and 1 B1 launch, host work included): "
+          f"{whole:.4f} ms [{card}]", flush=True)
     return kernel_ms, times
 
 
@@ -697,9 +870,9 @@ def phase_materialize(torch, card):
     torch.cuda.synchronize()
     ran = launches()
     print(f"device merge route: kernel launches {ran}")
-    for kname in ("pack_view", "merge_rank_sorted"):
-        if ran[kname] <= 0:
-            fail(f"kernel {kname} was not launched by the merge emission route")
+    if (ran["merge_rank_sorted"], ran["pack_view"]) != (1, 2):
+        fail(f"the device merge SELECT * launched {ran}, expected B1 once (every level, "
+             "both bounds) and pack_view twice (the probe views)")
     if checksum([merge]) != ref:
         fail(f"device merge route: (rows, checksum) {checksum([merge])} != host {ref}")
     select("select * device merge", "merge", warm=MAT_WARM_QUERIES)
@@ -727,7 +900,7 @@ def phase_materialize(torch, card):
     if got != host_left:
         fail(f"left join: (rows, checksum) {got} != host {host_left}")
     print(f"left join: {got[0]} rows, checksum equals the host route's")
-    return ctx, expected, ref
+    return ctx, expected, ref, ran
 
 
 def phase_emission_parts(torch, ctx, card, err):
@@ -767,45 +940,52 @@ def phase_emission_parts(torch, ctx, card, err):
         print(f"strategy {strategy}: {med * 1e3:.3f} ms (median of "
               f"{MAT_WARM_QUERIES}) [{card}]", flush=True)
 
-    # the 2 + 2L pack_view launches of one level-bounds pass, each held
-    # against its plain version on the same inputs: the two probe views
-    # (PAD slots to BUILD_PAD) and every level slice (PAD to PROBE_PAD)
-    def pack(k, v, c, pad, label):
-        got = mc.pack_view(k, v, c, pad)
-        d = max_diff(torch, got, mc.pack_view_plain(k, v, c, pad))
+    # the level-bounds pass: its two probe-view pack_view launches, each
+    # held against the plain version on the same inputs, then the one B1
+    # launch for every level and both bounds, held element by element
+    # against its plain version and timed with merge_level_bounds whole
+    def pack(k, v, c, label):
+        got = mc.pack_view(k, v, c, mc.BUILD_PAD)
+        d = max_diff(torch, got, mc.pack_view_plain(k, v, c, mc.BUILD_PAD))
         err["pack_view"] = max(err["pack_view"], d)
         if d:
             fail(f"pack_view on {label} of {k.numel()} rows: max |diff| {d}")
         return got
 
-    levels, _, _, _, _, c_bj2, c_bj1 = plan[:7]
-    q_e = pack(*plan[1:3], plan[7], mc.BUILD_PAD, "the probe end view")
-    q_s = pack(*plan[3:5], plan[8], mc.BUILD_PAD, "the probe start view")
-    packs = [(pack(k, s, c_bj2, mc.PROBE_PAD, "a level slice's starts"),
-              pack(k, e, c_bj1, mc.PROBE_PAD, "a level slice's ends"))
-             for k, s, e in (lv for lv in levels if lv is not None)]
-    print(f"pack_view: equal to its plain version on the 2 probe views and "
-          f"{2 * len(packs)} level slices of "
-          f"{min((a.numel() for a, _ in packs), default=0)} to "
-          f"{max((a.numel() for a, _ in packs), default=0)} rows")
-    for a_s, a_e in packs:
-        for a, q, strict in ((a_s, q_e, False), (a_e, q_s, True)):
-            d = max_diff(torch, mc.merge_rank_sorted(a, q, strict=strict),
-                         mc.merge_rank_plain(a, q, strict=strict))
-            err["merge_rank_sorted"] = max(err["merge_rank_sorted"], d)
-            if d:
-                fail(f"merge_rank_sorted on a level slice of {a.numel()} rows: max |diff| {d}")
-
-    def level_pass(rank):
-        return lambda: [(rank(a_s, q_e, strict=False), rank(a_e, q_s, strict=True))
-                        for a_s, a_e in packs]
-
-    p1 = time_events(torch, level_pass(mc.merge_rank_plain), TIMED_LAUNCHES)
-    k1 = time_events(torch, level_pass(mc.merge_rank_sorted), TIMED_LAUNCHES)
-    k2 = time_events(torch, level_pass(mc.merge_rank_sorted), TIMED_LAUNCHES)
-    p2 = time_events(torch, level_pass(mc.merge_rank_plain), TIMED_LAUNCHES)
-    print(f"level-bounds pass ({2 * len(packs)} B1 launches, M={q_e.numel()}): kernel "
-          f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms [{card}]", flush=True)
+    segplan, pqe_k, pqe_v, pqs_k, pqs_v, c_qe, c_qs, L, n = plan
+    q_e = pack(pqe_k, pqe_v, c_qe, "the probe end view")
+    q_s = pack(pqs_k, pqs_v, c_qs, "the probe start view")
+    got = torch.full((2, L, n), -1, dtype=torch.int32, device=q_e.device)
+    want = got.clone()
+    mc.merge_rank_segments(segplan, (q_e, q_s, got.view(-1)))
+    mc.merge_rank_segments_plain(segplan.segs, (q_e, q_s, want.view(-1)))
+    d = max_diff(torch, got, want)
+    err["merge_level_ranks"] = d
+    if d:
+        fail(f"the level launch: max |diff| {d} against its plain version")
+    sizes = [s.n for s in segplan.segs[::2]]
+    print(f"pack_view: the 2 probe views equal plain; the level launch ({len(segplan.segs)} "
+          f"segments, levels of {min(sizes)} to {max(sizes)} rows, M={q_e.numel()}): "
+          f"bounds [2, {L}, {n}] equal plain", flush=True)
+    out = got.view(-1)
+    level_bytes = (nbytes(q_e, q_s, *(s.ord for s in segplan.segs[:2]), out)
+                   + 12 * sum(sizes) + nbytes(*(s.raw[2] for s in segplan.segs[:2])))
+    level_ms = time_kernel(
+        torch, "merge_level_ranks (the level launch)",
+        lambda: mc.merge_rank_segments_plain(segplan.segs, (q_e, q_s, out)),
+        mc.segments_launcher(segplan, (q_e, q_s, out)),
+        None, level_bytes, len(sizes) * q_e.numel() * 2 + 2 * sum(sizes),
+        f"{len(segplan.segs)} segments, ranks through the orders", card)
+    # the same segments with the ranks stored direct (sorted order, no
+    # order): the difference is what the scattered stores cost
+    direct = mc.plan_segments([s._replace(ord=None) for s in segplan.segs], q_e.device)
+    t_direct = time_events(torch, mc.segments_launcher(direct, (q_e, q_s, out)), TIMED_LAUNCHES)
+    print(f"the level launch with its ranks stored direct, not through the orders: "
+          f"{t_direct:.4f} ms [{card}]", flush=True)
+    whole = time_events(torch, lambda: mc.merge_level_bounds(plan), TIMED_LAUNCHES)
+    print(f"merge_level_bounds whole (2 pack_view + 1 B1 launch): {whole:.4f} ms [{card}]",
+          flush=True)
+    return level_ms
 
 
 def stage_ms(torch, fn):
@@ -844,7 +1024,7 @@ def phase_stages(torch, ctx, card):
                   lambda: join._prepare(ectx, left, right))[0]
     plan = stage("device: bounds plan (memo hit)",
                  lambda: join._merge_bounds_plan(left, right, index))
-    lb, ub = stage("device: merge_level_bounds (B1, pack_view, scatter)",
+    lb, ub = stage("device: merge_level_bounds (1 B1 and 2 pack_view launches)",
                    lambda: mc.merge_level_bounds(plan))
     packed = stage("device: counts and nnz to the host",
                    lambda: ij._counts_and_nnz(lb, ub).cpu().numpy())
@@ -1022,8 +1202,8 @@ def main() -> None:
     phase_level(torch, sessions, card)
     resident_launches, resident_cols = phase_resident(torch, dev)
     kernel_ms, _ = phase_times(torch, sessions, card, err, resident_cols)
-    mat_ctx, mat_expected, mat_ref = phase_materialize(torch, card)
-    phase_emission_parts(torch, mat_ctx, card, err)
+    mat_ctx, mat_expected, mat_ref, mat_launches = phase_materialize(torch, card)
+    kernel_ms["merge_level_ranks"] = phase_emission_parts(torch, mat_ctx, card, err)
     phase_stream(sessions, card)
     phase_copy(mat_ctx, mat_expected, mat_ref)
     phase_stages(torch, mat_ctx, card)
@@ -1034,10 +1214,12 @@ def main() -> None:
         fail("the port imported jax")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches come from the run of its own path: B1 and
-    # pack_view from the merge route, B2 from the stream route, B3 from
+    # pack_view from the merge count(*) route, B1's level mode from the
+    # device merge SELECT *, B2 from the stream route, B3 from
     # rank_lex_resident
     launches = {
         "merge_rank_sorted": merge_launches["merge_rank_sorted"],
+        "merge_level_ranks": mat_launches["merge_rank_sorted"],
         "pack_view": merge_launches["pack_view"],
         "stream_rank_sorted": stream_launches["stream_rank_sorted"],
         "rank_sorted_resident": resident_launches["rank_sorted_resident"],
@@ -1050,8 +1232,7 @@ def main() -> None:
             "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": err[name],
-            "ms": kernel_ms[name][0],
-            "plain_ms": kernel_ms[name][1],
+            **kernel_ms[name],
         }
         for name, (src, replaces) in KERNELS.items()
     ]}

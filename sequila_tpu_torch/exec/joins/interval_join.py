@@ -905,8 +905,8 @@ class IntervalJoinExec(ExecPlan):
         the plan engages (SEQUILA_EMIT_BACKEND=merge, the default), else
         the co-sort / bsearch / window chunks."""
         if method == "sort":
-            # sort-free merge-rank bounds: the whole probe's [lb, ub) in 2L
-            # B1 launches over the cached sorted views — no device sort
+            # sort-free merge-rank bounds: the whole probe's [lb, ub) in one
+            # B1 launch over the cached sorted views — no device sort
             plan = self._merge_bounds_plan(left, right, index)
             if plan is not None:
                 return self._merge_pair_chunks(index, plan, cap), "merge"
@@ -1057,7 +1057,7 @@ class IntervalJoinExec(ExecPlan):
         """Yield (probe_lo, build_rows, probe_rows_local) pair chunks from
         the merge-rank bounds — the sort-free twin of _device_pair_chunks.
 
-        Bounds for the WHOLE probe are computed once (2L B1 launches);
+        Bounds for the WHOLE probe are computed once (one B1 launch);
         ``cap`` then slices them into emission chunks by the exact
         per-probe counts, so the ranks are never recomputed."""
         from sequila_tpu_torch.ops.cuda import merge_count as mc

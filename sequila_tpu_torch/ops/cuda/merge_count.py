@@ -11,8 +11,10 @@ sorted sequence inside another:
   ``[base_j, base_j + span_j)``); the numpy planning (``_joint_domain``,
   ``_c_tab``, ``plan_packing``) is the JAX package's, unchanged;
 - ``pack_view`` applies that packing to one cached view and
-  ``merge_rank_sorted`` ranks the sorted build tuples inside the sorted
-  probe arrays — both hand-written CUDA kernels (csrc/merge_rank.cu).
+  ``merge_rank_segments`` ranks sorted queries inside sorted tables, any
+  number of independent segments in one merge-path launch — both
+  hand-written CUDA kernels (csrc/merge_rank.cu).  A count(*) is one
+  launch for both passes (``merge_count_passes``).
 
 Count identity (BITS, Layer & Quinlan 2012):
 
@@ -25,8 +27,9 @@ non-inverted builds — the operator routes those away first.
 
 The same two kernels give the materializing join its emission bounds
 (``plan_level_bounds`` / ``merge_level_bounds``): per level of the
-interval index, the packed level slice is the table and the packed probe
-views are the queries, two rank passes a level, exact for every shape.
+interval index, the level slice (packed on load) is the table and the
+packed probe views are the queries, two segments a level, every level in
+one launch, exact for every shape.
 
 Packed views are carried in int32 tensors holding the u32 bit patterns:
 PyTorch implements few operators for ``torch.uint32``, and the kernels read
@@ -37,6 +40,9 @@ limb sums and the ``_M_LIMIT`` guard are gone: ranks sum in 64 bits.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -201,39 +207,274 @@ def merge_rank_plain(a, q, *, strict: bool, reduce: bool = False) -> torch.Tenso
     return ranks.to(torch.int32)
 
 
+# ---------------------------------------------------------------------------
+# The segmented merge-path launch (csrc/merge_rank.cu::merge_path_kernel)
+# ---------------------------------------------------------------------------
+
+# the kernel's tiling: THREADS x ITEMS merge diagonals a tile, TILES
+# tiles (SPAN diagonals) a block, one warp for each tile boundary
+THREADS = 256
+ITEMS = 8
+TILE = THREADS * ITEMS
+TILES = THREADS // 32 - 1
+SPAN = TILES * TILE
+N_SLOTS = 6  # per-call tensors a launch names (kBases)
+N_INLINE = 2  # segments passed as kernel parameters (kInline)
+# int64 fields of one descriptor row (csrc/merge_rank.cu::Segment)
+(_F_A_SLOT, _F_A_OFF, _F_RAW_K, _F_RAW_V, _F_C_TAB, _F_N_TAB, _F_PAD, _F_N,
+ _F_Q_SLOT, _F_Q_OFF, _F_M, _F_STRICT, _F_OUT_SLOT, _F_OUT_OFF, _F_ORD,
+ _F_N_REAL, _F_TOTAL_SLOT, _F_TOTAL_OFF, _F_BLOCK0) = range(19)
+_F = 20
+
+
+class Segment(NamedTuple):
+    """One rank problem of a segmented B1 launch.
+
+    The queries, a packed table and the outputs live in the launch's
+    per-call tensors ("slots"), named here as (slot, element offset), so a
+    plan built once serves every call.  ``raw`` = (k, v, c_tab, pad) is a
+    table of key codes and values packed on load; its tensors are read in
+    place and must outlive the plan.  ``out``: int32 ranks, written to
+    ``out[ord[j]]`` (or ``out[j]`` without an order) for j < n_real;
+    ``total``: an int64 slot the ranks of all m queries add into."""
+
+    n: int
+    m: int
+    q: tuple[int, int]
+    strict: bool
+    a: tuple[int, int] | None = None
+    raw: tuple | None = None
+    out: tuple[int, int] | None = None
+    ord: torch.Tensor | None = None
+    n_real: int | None = None
+    total: tuple[int, int] | None = None
+
+
+class SegmentPlan(NamedTuple):
+    segs: tuple
+    block0: np.ndarray  # int64 [S + 1]: each segment's first block, then all
+    device: torch.device  # where the segments' raw tables and orders live
+    need: tuple  # per slot: (dtype, least numel), or None for an unused slot
+    desc: np.ndarray | None  # int64 [S, _F] descriptors (CUDA), host copy
+    desc_dev: torch.Tensor | None  # the same on the card when S > N_INLINE
+
+
+def segment_blocks(n: int, m: int) -> int:
+    """Blocks of a segment: its n + m merge diagonals in spans of SPAN;
+    none without queries, which have no rank to give."""
+    return -(-(n + m) // SPAN) if m else 0
+
+
+def _n_real(s: Segment) -> int:
+    return s.m if s.n_real is None else s.n_real
+
+
+def _slot_needs(segs) -> tuple:
+    """Per slot the dtype the segments read it as and the elements they
+    reach."""
+    need: dict[int, tuple] = {}
+    for s in segs:
+        refs = [(s.q, s.m, torch.int32)]
+        if s.a is not None:
+            refs.append((s.a, s.n, torch.int32))
+        if s.out is not None:
+            refs.append((s.out, _n_real(s), torch.int32))
+        if s.total is not None:
+            refs.append((s.total, 1, torch.int64))
+        for (i, off), length, dtype in refs:
+            if not 0 <= i < N_SLOTS or off < 0:
+                raise ValueError(f"slot reference {(i, off)}: slots are 0 .. {N_SLOTS - 1}")
+            was = need.get(i, (dtype, 0))
+            if was[0] != dtype:
+                raise ValueError(f"slot {i} read as {was[0]} and as {dtype}")
+            need[i] = (dtype, max(was[1], off + length))
+    return tuple(need.get(i) for i in range(max(need) + 1))
+
+
+def plan_segments(segs, device) -> SegmentPlan:
+    """Block prefix, slot needs and, for the card, the descriptor table of
+    ``segs``.
+
+    Built once per plan: with more than N_INLINE segments the descriptors
+    are uploaded here, so a warm call copies nothing from the host."""
+    segs = tuple(segs)
+    if not segs:
+        raise ValueError("a segmented launch needs at least one segment")
+    block0 = np.zeros(len(segs) + 1, np.int64)
+    np.cumsum([segment_blocks(s.n, s.m) for s in segs], out=block0[1:])
+    owned = []  # the raw tables and orders, read in place by the kernel
+    for s in segs:
+        if (s.a is None) == (s.raw is None):
+            raise ValueError("a segment's table is packed (a) or raw, not both or neither")
+        if not 0 <= s.n < 2**31:
+            raise ValueError(f"table of {s.n} rows: ranks must fit int32")
+        if s.ord is not None and (s.out is None or s.ord.numel() != _n_real(s)):
+            raise ValueError("an order needs an output and one entry a written rank")
+        if not 0 <= _n_real(s) <= s.m:
+            raise ValueError(f"n_real {s.n_real} outside [0, {s.m}]")
+        if s.ord is not None:
+            _check(s.ord, "ord", torch.int64)
+            owned.append(s.ord)
+        if s.raw is not None:
+            k, v, c_tab, pad = s.raw
+            for t, name in ((k, "k"), (v, "v"), (c_tab, "c_tab")):
+                _check(t, name)
+            if k.numel() != s.n or v.numel() != s.n or not 0 < c_tab.numel() < 2**31:
+                raise ValueError("a raw table's k and v hold n rows and c_tab 1 .. 2^31-1")
+            if not 0 <= pad <= _U32:
+                raise ValueError(f"pad sentinel {pad} is not a u32")
+            owned += [k, v, c_tab]
+    device = _same_device(*owned) if owned else torch.device(device)
+    need = _slot_needs(segs)
+    if device.type != "cuda":
+        return SegmentPlan(segs, block0, device, need, None, None)
+    desc = np.zeros((len(segs), _F), np.int64)
+    for row, s, b0 in zip(desc, segs, block0):
+        row[[_F_A_SLOT, _F_OUT_SLOT, _F_TOTAL_SLOT]] = -1
+        if s.a is not None:
+            row[_F_A_SLOT], row[_F_A_OFF] = s.a
+        else:
+            k, v, c_tab, pad = s.raw
+            row[[_F_RAW_K, _F_RAW_V, _F_C_TAB]] = (k.data_ptr(), v.data_ptr(), c_tab.data_ptr())
+            row[_F_N_TAB], row[_F_PAD] = c_tab.numel(), pad
+        row[_F_N], row[_F_M], row[_F_STRICT] = s.n, s.m, int(s.strict)
+        row[_F_Q_SLOT], row[_F_Q_OFF] = s.q
+        if s.out is not None:
+            row[_F_OUT_SLOT], row[_F_OUT_OFF] = s.out
+            row[_F_ORD] = 0 if s.ord is None else s.ord.data_ptr()
+            row[_F_N_REAL] = _n_real(s)
+        if s.total is not None:
+            row[_F_TOTAL_SLOT], row[_F_TOTAL_OFF] = s.total
+        row[_F_BLOCK0] = b0
+    desc_dev = torch.from_numpy(desc).to(device) if len(segs) > N_INLINE else None
+    return SegmentPlan(segs, block0, device, need, desc, desc_dev)
+
+
+def _slot(slots, ref, length: int, dtype) -> torch.Tensor:
+    """The ``length`` elements of slot ``ref`` = (slot, offset)."""
+    i, off = ref
+    t = slots[i]
+    if t.dtype != dtype:
+        raise TypeError(f"slot {i}: expected {dtype}, got {t.dtype}")
+    return t[off:off + length]
+
+
+def _check_slots(plan: SegmentPlan, slots) -> torch.device:
+    """Validate the per-call tensors against the plan's needs (per slot,
+    not per segment: a warm call stays cheap); their device."""
+    if not len(plan.need) <= len(slots) <= N_SLOTS:
+        raise ValueError(f"the plan reads {len(plan.need)} slots of at most {N_SLOTS}, "
+                         f"got {len(slots)}")
+    for i, t in enumerate(slots):
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"slot {i}: expected a contiguous 1-D tensor")
+    dev = _same_device(*slots)
+    want = plan.device
+    if dev.type != want.type or want.index not in (None, dev.index):
+        raise ValueError(f"a plan on {want}, slots on {dev}")
+    for i, need in enumerate(plan.need):
+        if need is None:
+            continue
+        dtype, numel = need
+        if slots[i].dtype != dtype:
+            raise TypeError(f"slot {i}: expected {dtype}, got {slots[i].dtype}")
+        if slots[i].numel() < numel:
+            raise ValueError(f"slot {i}: {slots[i].numel()} elements, the plan reads {numel}")
+    return dev
+
+
+def merge_rank_segments_plain(segs, slots) -> None:
+    """Plain PyTorch version of the segmented launch: per segment,
+    pack_view_plain for a raw table, merge_rank_plain, then the sum or the
+    ranks through the order."""
+    for s in segs:
+        q = _slot(slots, s.q, s.m, torch.int32)
+        if s.a is not None:
+            a = _slot(slots, s.a, s.n, torch.int32)
+        else:
+            a = pack_view_plain(*s.raw)
+        ranks = merge_rank_plain(a, q, strict=s.strict)
+        if s.total is not None:
+            _slot(slots, s.total, 1, torch.int64).add_(ranks.sum(dtype=torch.int64))
+        if s.out is not None:
+            n_real = _n_real(s)
+            out = _slot(slots, s.out, n_real, torch.int32)
+            if s.ord is None:
+                out.copy_(ranks[:n_real])
+            else:
+                out[s.ord] = ranks[:n_real]
+
+
+def segments_launcher(plan: SegmentPlan, slots):
+    """Validate ``slots`` against ``plan`` once and return a callable that
+    runs every segment in ONE launch of the merge-path kernel (B1): ranks
+    land in their output slots, sums add into their int64 slots (zero them
+    first).  CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise.  Each launch adds one to ``merge_rank_sorted.launches``."""
+    slots = tuple(slots)
+    dev = _check_slots(plan, slots)
+    if dev.type == "cpu":
+        return lambda: merge_rank_segments_plain(plan.segs, slots)
+    blocks = int(plan.block0[-1])
+    if blocks == 0:
+        return lambda: None
+    from sequila_tpu_torch.ops.cuda import _lib
+
+    fn = _lib.lib().seq_merge_path
+    bases = np.zeros(N_SLOTS, np.uint64)
+    bases[: len(slots)] = [t.data_ptr() for t in slots]
+    inline = None if plan.desc_dev is not None else plan.desc.ctypes.data
+    table = None if plan.desc_dev is None else plan.desc_dev.data_ptr()
+    args = (inline, table, len(plan.segs), blocks, bases.ctypes.data)
+
+    def launch(keep=(plan, slots, bases)):  # the launch reads their memory
+        with torch.cuda.device(dev):
+            err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        _lib.check(err, "merge_rank_segments")
+        merge_rank_sorted.launches += 1
+
+    return launch
+
+
+def merge_rank_segments(plan: SegmentPlan, slots) -> None:
+    """Run every segment of ``plan`` over the per-call tensors ``slots``
+    in one launch (see segments_launcher).  Replaces the TPU kernel
+    sequila_tpu/ops/pallas/merge_count.py:110::_merge_rank_sorted (B1) and
+    its per-level caller :615."""
+    segments_launcher(plan, slots)()
+
+
+@functools.lru_cache(maxsize=64)
+def _packed_plan(n: int, m: int, strict: bool, reduce: bool, device: torch.device) -> SegmentPlan:
+    out = {"total": (2, 0)} if reduce else {"out": (2, 0)}
+    return plan_segments([Segment(n, m, q=(1, 0), strict=strict, a=(0, 0), **out)], device)
+
+
+@functools.lru_cache(maxsize=64)
+def _count_plan(n1: int, m1: int, n2: int, m2: int, device: torch.device) -> SegmentPlan:
+    return plan_segments(count_segments(n1, m1, n2, m2), device)
+
+
 def merge_rank_sorted(a, q, *, strict: bool, reduce: bool = False) -> torch.Tensor:
     """Rank each sorted u32 query ``q`` in the sorted u32 table ``a``.
 
     strict=True  -> #{a <  q};  strict=False -> #{a <= q} (unsigned order).
     Returns the int32 ranks, or with ``reduce=True`` their int64 sum as a
     0-d tensor (the kernel then writes no ranks).  ``a`` and ``q`` are
-    int32 tensors holding u32 bits, each sorted as u32.
+    int32 tensors holding u32 bits, each sorted as u32.  One packed
+    segment of merge_rank_segments; ``merge_rank_sorted.launches`` counts
+    every launch of that kernel, whoever calls it.
     Replaces the TPU kernel sequila_tpu/ops/pallas/merge_count.py:110
     ::_merge_rank_sorted (B1)."""
     _check(a, "a")
     _check(q, "q")
-    if a.numel() >= 2**31:
-        raise ValueError(f"table of {a.numel()} rows: ranks must fit int32")
     dev = _same_device(a, q)
-    if dev.type == "cpu":
-        return merge_rank_plain(a, q, strict=strict, reduce=reduce)
-    from sequila_tpu_torch.ops.cuda import _lib
-
-    m = q.numel()
-    total = torch.zeros((), dtype=torch.int64, device=dev) if reduce else None
-    ranks = None if reduce else torch.empty(m, dtype=torch.int32, device=dev)
-    if m == 0:
-        return total if reduce else ranks
-    with torch.cuda.device(dev):
-        err = _lib.lib().seq_merge_rank(
-            a.data_ptr(), a.numel(), q.data_ptr(), m, int(strict),
-            None if reduce else ranks.data_ptr(),
-            total.data_ptr() if reduce else None,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _lib.check(err, "merge_rank_sorted")
-    merge_rank_sorted.launches += 1
-    return total if reduce else ranks
+    if reduce:
+        out = torch.zeros(1, dtype=torch.int64, device=dev)
+    else:
+        out = torch.empty(q.numel(), dtype=torch.int32, device=dev)
+    merge_rank_segments(_packed_plan(a.numel(), q.numel(), strict, reduce, dev), (a, q, out))
+    return out[0] if reduce else out
 
 
 merge_rank_sorted.launches = 0
@@ -245,7 +486,8 @@ def merge_count_passes(
     bqe_k, bqe_v, c_bqe,  # build sorted by (k, start): queries of pass 2
     pqe_k, pqe_v, c_pqe,  # probe sorted by (k, qe):    table of pass 2
 ) -> torch.Tensor:
-    """Both BITS rank passes; returns the count as an int64 0-d tensor.
+    """Both BITS rank passes in one segmented launch; returns the count as
+    an int64 0-d tensor.
 
     Pass 1 sums over build rows #{qs <= end_b}, pass 2 #{qe < start_b}.
     Build PAD rows rank the padded probe length in both passes and cancel;
@@ -255,9 +497,20 @@ def merge_count_passes(
     a1 = pack_view(pqs_k, pqs_v, c_pqs, PROBE_PAD)
     q2 = pack_view(bqe_k, bqe_v, c_bqe, BUILD_PAD)
     a2 = pack_view(pqe_k, pqe_v, c_pqe, PROBE_PAD)
-    r1 = merge_rank_sorted(a1, q1, strict=False, reduce=True)
-    r2 = merge_rank_sorted(a2, q2, strict=True, reduce=True)
-    return r1 - r2
+    totals = torch.zeros(2, dtype=torch.int64, device=q1.device)
+    plan = _count_plan(a1.numel(), q1.numel(), a2.numel(), q2.numel(), q1.device)
+    merge_rank_segments(plan, (a1, q1, a2, q2, totals))
+    return totals[0] - totals[1]
+
+
+def count_segments(n1: int, m1: int, n2: int, m2: int) -> tuple:
+    """The two segments of a count(*) over the slots (a1, q1, a2, q2,
+    totals[2]): pass 1 non-strict into totals[0], pass 2 strict into
+    totals[1]."""
+    return (
+        Segment(n1, m1, q=(1, 0), strict=False, a=(0, 0), total=(4, 0)),
+        Segment(n2, m2, q=(3, 0), strict=True, a=(2, 0), total=(4, 1)),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -267,15 +520,15 @@ def merge_count_passes(
 
 def plan_level_bounds(index, probe, r_key, qs_cd, qe_cd, bs_cd, be_cd,
                       remap_b, remap_q, views):
-    """Per-level merge-rank plan for emission bounds, or None.
+    """Segmented merge-rank plan for emission bounds, or None.
 
     Each level slice of the build index is sorted by (key, start) and, by
     the monotone-end level invariant, also by (key, end), so both bounds
     of every level rank the cached sorted probe views inside an already
-    sorted packed-u32 array: 2L ``merge_rank_sorted`` launches and no
-    device sort.  Exact for every query shape (degenerate stabbing probes,
-    inverted build rows): the level-run identity needs no BITS subset
-    argument, so this route is wider than the merge count.
+    sorted packed-u32 array: 2L segments of one merge_rank_segments launch
+    and no device sort.  Exact for every query shape (degenerate stabbing
+    probes, inverted build rows): the level-run identity needs no BITS
+    subset argument, so this route is wider than the merge count.
 
     ``index``: IntervalIndex over JOINT key codes with the planner's ±lit
     bound deltas already applied to its stored starts and ends, so the
@@ -284,8 +537,9 @@ def plan_level_bounds(index, probe, r_key, qs_cd, qe_cd, bs_cd, be_cd,
     columns (Table.per_key_minmax order: bs, be, qs, qe); ``*_cd`` =
     (column index, delta).  The plan lives on ``index.device``.  Port of
     sequila_tpu/ops/pallas/merge_count.py::plan_level_bounds; the CUDA B1
-    reads no chunk windows, so the level slices are views of the index's
-    device arrays, unpadded.
+    reads no chunk windows, and packs each level's REAL rows raw from the
+    index's device arrays on load (a level's PAD tail would pack to
+    PROBE_PAD, above every real query, and change no rank).
     """
     nkeys = int(max(remap_b.max(initial=-1), remap_q.max(initial=-1))) + 1
     if nkeys <= 0 or index.n_rows == 0:
@@ -314,62 +568,39 @@ def plan_level_bounds(index, probe, r_key, qs_cd, qe_cd, bs_cd, be_cd,
 
     pqe_k, pqe_v, _, _, n = probe.sorted_interval_view(r_key, qe_cd[0], dev)
     pqs_k, pqs_v, _, _, _ = probe.sorted_interval_view(r_key, qs_cd[0], dev)
+    m_pad = pqe_k.numel()
     # the views' real rows lead and their PAD slots trail, so the orders
     # (real rows only) scatter the first n ranks and nothing else
     ord_qe, ord_qs = (
         torch.from_numpy(probe.sorted_interval_order(r_key, c).astype(np.int64)).to(dev)
         for c in (qe_cd[0], qs_cd[0])
     )
-    levels = []
-    for lv in range(index.num_levels):
-        if index.level_sizes[lv] == 0:
-            levels.append(None)
-            continue
-        lo, hi = index.level_offsets[lv], index.level_offsets[lv] + index.level_pad[lv]
-        levels.append((index.keys[lo:hi], index.starts[lo:hi], index.ends[lo:hi]))
-    return (
-        levels, pqe_k, pqe_v, pqs_k, pqs_v, c_bj2, c_bj1, c_qe, c_qs,
-        ord_qe, ord_qs, n,
-    )
-
-
-def _level_rank_pair(k_l, s_l, e_l, q_e, q_s, c_bj2, c_bj1):
-    """One level's (ub, lb) ranks of the packed probe views: ub ranks the
-    probe ends among the level's starts (#{start <= qe}), lb the probe
-    starts among its ends (#{end < qs}).  The level's PAD rows pack to the
-    table sentinel, above every real query."""
-    a_s = pack_view(k_l, s_l, c_bj2, PROBE_PAD)
-    a_e = pack_view(k_l, e_l, c_bj1, PROBE_PAD)
-    ub = merge_rank_sorted(a_s, q_e, strict=False)
-    lb = merge_rank_sorted(a_e, q_s, strict=True)
-    return ub, lb
-
-
-def _scatter_bounds(ub_stack, lb_stack, ord_qe, ord_qs, n: int):
-    """Per-pass sorted-order ranks [L, m_pad] back to probe row order
-    [L, n]: the views' PAD slots (the tail past n) are cut before the
-    scatter, so every index lands in range (the JAX package drops them
-    with an out-of-range index instead)."""
-    lb = torch.empty((lb_stack.shape[0], n), dtype=torch.int32, device=lb_stack.device)
-    ub = torch.empty_like(lb)
-    ub[:, ord_qe] = ub_stack[:, :n]
-    lb[:, ord_qs] = lb_stack[:, :n]
-    return lb, ub
+    # slots of a call: 0 packed probe ends, 1 packed probe starts, 2 the
+    # [2, L, n] bounds (lb rows, then ub rows) flattened
+    L = index.num_levels
+    segs = []
+    for lv in range(L):
+        lo, size = index.level_offsets[lv], index.level_sizes[lv]
+        k_l = index.keys[lo:lo + size]
+        # ub: the probe ends among the level's starts, #{start <= qe}
+        segs.append(Segment(size, m_pad, q=(0, 0), strict=False,
+                            raw=(k_l, index.starts[lo:lo + size], c_bj2, PROBE_PAD),
+                            out=(2, (L + lv) * n), ord=ord_qe, n_real=n))
+        # lb: the probe starts among its ends, #{end < qs}
+        segs.append(Segment(size, m_pad, q=(1, 0), strict=True,
+                            raw=(k_l, index.ends[lo:lo + size], c_bj1, PROBE_PAD),
+                            out=(2, lv * n), ord=ord_qs, n_real=n))
+    return plan_segments(segs, dev), pqe_k, pqe_v, pqs_k, pqs_v, c_qe, c_qs, L, n
 
 
 def merge_level_bounds(plan):
     """Run the plan: per-level [lb, ub) emission bounds, [L, n] int32 in
     PROBE ROW order (n = the probe's real rows) — drop-in for
-    ops/interval_join.overlap_bounds.  The probe views are packed once
-    for all levels."""
-    (levels, pqe_k, pqe_v, pqs_k, pqs_v, c_bj2, c_bj1, c_qe, c_qs,
-     ord_qe, ord_qs, n) = plan
+    ops/interval_join.overlap_bounds.  Two pack_view launches for the probe
+    views, then one B1 launch for every level and both bounds."""
+    segplan, pqe_k, pqe_v, pqs_k, pqs_v, c_qe, c_qs, L, n = plan
     q_e = pack_view(pqe_k, pqe_v, c_qe, BUILD_PAD)
     q_s = pack_view(pqs_k, pqs_v, c_qs, BUILD_PAD)
-    zero = torch.zeros_like(q_e)
-    ubs, lbs = [], []
-    for lv in levels:
-        ub, lb = (zero, zero) if lv is None else _level_rank_pair(*lv, q_e, q_s, c_bj2, c_bj1)
-        ubs.append(ub)
-        lbs.append(lb)
-    return _scatter_bounds(torch.stack(ubs), torch.stack(lbs), ord_qe, ord_qs, n)
+    bounds = torch.empty((2, L, n), dtype=torch.int32, device=q_e.device)
+    merge_rank_segments(segplan, (q_e, q_s, bounds.view(-1)))
+    return bounds[0], bounds[1]

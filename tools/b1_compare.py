@@ -1,0 +1,151 @@
+"""Time B1 (merge_rank_sorted and its callers) of several source trees of
+sequila_tpu_torch on one NVIDIA GPU, in turns, beside torch.searchsorted.
+
+    python3 tools/b1_compare.py --tree local/parent --tree . --tree . --tree local/parent
+
+Each tree runs in its own process from its own directory (its own kernel
+build), in the order given, so a change is compared with its parent on the
+same card within one call.  Each prints one JSON line: the card's name and
+power limit, and CUDA-event times (ms, means over 20 launches, warm) at the
+main path's shapes:
+- the genome pair's count(*) (gen_genome_table(2_350_965, 21) x
+  (7_684_066, 22)): B1 ranks and reduce on pass 1 (N=7,684,096 packed probe
+  starts, M=2,351,104 packed build ends), torch.searchsorted on the same
+  values XOR the sign bit (int32), and merge_count_passes whole (4 pack_view
+  and the tree's B1 launches), and where the tree has the segmented B1,
+  its bare launches (ranks, and both count passes);
+- the 15M SELECT * pairing (gen_chain_table(20_000, 13) x (300_000, 14)) on
+  the device merge route: merge_level_bounds whole (and the segmented B1's
+  bare level launch), and the pairs its bounds hold (14,729,736 when right);
+with the B1 and pack_view launches of one call of each.  Needs a CUDA
+device; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+REPS = 20
+
+
+def worker() -> None:
+    import pyarrow as pa
+    import torch
+
+    from sequila_tpu_torch import bench_data as bd
+    from sequila_tpu_torch.ops.cuda import merge_count as mc
+    from sequila_tpu_torch.session import SessionContext
+
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device")
+
+    def ms(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(REPS):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / REPS
+
+    def launches(fn) -> dict:
+        mc.merge_rank_sorted.launches = mc.pack_view.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        return {"merge_rank_sorted": mc.merge_rank_sorted.launches,
+                "pack_view": mc.pack_view.launches}
+
+    def session(t1, t2):
+        ctx = SessionContext(device="cuda")
+        ctx.register_table("s1", pa.table(t1))
+        ctx.register_table("s2", pa.table(t2))
+        return ctx
+
+    out = {"tree": os.getcwd(), "card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()}
+    ctx = session(bd.gen_genome_table(bd.GENOME_LEFT, 21), bd.gen_genome_table(bd.GENOME_RIGHT, 22))
+    ctx.sql(bd.QUERY)
+    join = ctx.plan_sql(bd.QUERY).children[0]
+    left, right = ctx.table("s1"), ctx.table("s2")
+    plan = join._merge_count_plan(left, right, *join._sorted_count_inputs(left, right))
+    q1 = mc.pack_view(*plan[0:3], mc.BUILD_PAD)
+    a1 = mc.pack_view(*plan[3:6], mc.PROBE_PAD)
+    sign = torch.tensor(-(2**31), dtype=torch.int32, device=a1.device)
+    a_s, q_s = a1 ^ sign, q1 ^ sign
+    ranks = torch.empty(q1.numel(), dtype=torch.int32, device=q1.device)
+    if not torch.equal(mc.merge_rank_sorted(a1, q1, strict=False),
+                       torch.searchsorted(a_s, q_s, right=True, out_int32=True)):
+        sys.exit("B1 ranks differ from torch.searchsorted")
+    out["b1_ranks_ms"] = ms(lambda: mc.merge_rank_sorted(a1, q1, strict=False))
+    out["b1_reduce_ms"] = ms(lambda: mc.merge_rank_sorted(a1, q1, strict=False, reduce=True))
+    out["searchsorted_ms"] = ms(
+        lambda: torch.searchsorted(a_s, q_s, right=True, out_int32=True, out=ranks))
+    out["count_passes_ms"] = ms(lambda: mc.merge_count_passes(*plan))
+    if hasattr(mc, "segments_launcher"):  # the bare launches of the segmented B1
+        out["b1_ranks_launch_ms"] = ms(mc.segments_launcher(mc.plan_segments(
+            [mc.Segment(a1.numel(), q1.numel(), q=(1, 0), strict=False, a=(0, 0), out=(2, 0))],
+            a1.device), (a1, q1, ranks)))
+        q2 = mc.pack_view(*plan[6:9], mc.BUILD_PAD)
+        a2 = mc.pack_view(*plan[9:12], mc.PROBE_PAD)
+        totals = torch.zeros(2, dtype=torch.int64, device=a1.device)
+        out["count_launch_ms"] = ms(mc.segments_launcher(
+            mc.plan_segments(mc.count_segments(a1.numel(), q1.numel(), a2.numel(), q2.numel()),
+                             a1.device), (a1, q1, a2, q2, totals)))
+    out["count_passes_launches"] = launches(lambda: mc.merge_count_passes(*plan))
+    out["count"] = int(mc.merge_count_passes(*plan))
+    del ctx, plan, q1, a1, a_s, q_s, ranks
+
+    os.environ["SEQUILA_HOST_THRESHOLD"] = "0"
+    query = ("SELECT * FROM s1 a JOIN s2 b ON a.contig = b.contig "
+             "AND a.pos_end >= b.pos_start AND a.pos_start <= b.pos_end")
+    ctx = session(bd.gen_chain_table(20_000, 13), bd.gen_chain_table(300_000, 14))
+    ctx.sql(query)
+    stack = [ctx.plan_sql(query)]
+    while not hasattr(stack[-1], "_merge_bounds_plan"):
+        node = stack.pop()
+        stack.extend(node.children)
+    join = stack[-1]
+    left, right = ctx.table("s1"), ctx.table("s2")
+    from sequila_tpu_torch.exec.context import ExecContext
+
+    index = join._prepare(ExecContext(ctx.config), left, right)[0]
+    bplan = join._merge_bounds_plan(left, right, index)
+    out["levels"] = index.num_levels
+    lb, ub = mc.merge_level_bounds(bplan)
+    out["level_pairs"] = int((ub.to(torch.int64) - lb).clamp(min=0).sum())
+    out["level_bounds_ms"] = ms(lambda: mc.merge_level_bounds(bplan))
+    if hasattr(mc, "segments_launcher"):
+        q_e = mc.pack_view(*bplan[1:3], bplan[5], mc.BUILD_PAD)
+        q_s = mc.pack_view(*bplan[3:5], bplan[6], mc.BUILD_PAD)
+        bounds = torch.empty(2 * bplan[7] * bplan[8], dtype=torch.int32, device=q_e.device)
+        out["level_launch_ms"] = ms(mc.segments_launcher(bplan[0], (q_e, q_s, bounds)))
+    out["level_bounds_launches"] = launches(lambda: mc.merge_level_bounds(bplan))
+    print(json.dumps(out), flush=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tree", action="append", default=[], help="a source tree, in turn")
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        sys.path.insert(0, os.getcwd())
+        worker()
+        return
+    rc = 0
+    for tree in args.tree or ["."]:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker"],
+                             cwd=os.path.abspath(tree), timeout=600)
+        rc = rc or res.returncode
+    sys.exit(rc)
+
+
+if __name__ == "__main__":
+    main()
