@@ -11,11 +11,15 @@ Phases, each of which exits non-zero when it fails:
    card, exact integer equality.  merge_rank_sorted and pack_view on random
    sorted u32 tables with duplicate runs, both sentinels, both ``strict``
    values, ragged lengths and an empty table, up to the genome shapes;
-   stream_rank_sorted (B2) and rank_sorted_resident (B3) on random sorted
-   (key, value) builds with duplicate runs across chunks and PAD tails,
-   both ``strict`` values, B2 up to the genome shapes and B3 up to its
-   2^20-row cap with 2.35 M queries, each also against one global
-   torch.searchsorted rank (which a bad window would miss); B1's
+   stream_rank_sorted (B2) and rank_sorted_resident (B3), both one merge
+   path over (key, value) pairs (pair_merge.cu), on random sorted builds
+   with duplicate runs across chunks and PAD tails, both ``strict``
+   values, B2 up to the genome shapes and B3 up to its 2^20-row cap with
+   2.35 M queries, each also against one global torch.searchsorted rank
+   (which a bad window would miss); one pair-merge launch of edge
+   segments (empty table, empty queries, a 1-row table, tables far larger
+   and far smaller than their queries, a duplicate run longer than a tile,
+   exact and too-narrow windows), both ``strict`` values; B1's
    segmented launch (merge_rank_segments), one launch a case, with ranks
    through a random permutation and sums, both ``strict`` values: one
    segment at every B1 shape, two (inline) at the genome count shape, and
@@ -28,7 +32,8 @@ Phases, each of which exits non-zero when it fails:
    route must answer and its kernels' launch counters rise; a warm
    count(*) must launch B1 once (both BITS passes) and pack_view 4 times;
 4b. the other count backends on both pairs: SEQUILA_COUNT_BACKEND=stream
-   (B2's counter must rise) and =cosort (no B1 or B2 launch), the same
+   (B2's counter must rise, and a warm stream count(*) launch B2 exactly
+   once for both passes) and =cosort (no B1 or B2 launch), the same
    counts, each route asserted through the operator's route metric;
 4c. the level loop at full size: the genome pair with 1 % zero-length probe
    rows under the half-open query (degenerate after the planner's end - 1),
@@ -36,11 +41,13 @@ Phases, each of which exits non-zero when it fails:
    host index over the same columns;
 4d. B3's entry point ``rank_lex_resident`` at its cap (2^20-row build,
    2.35 M queries) against ``rank_lex_sort``;
-   then the warm time of every route on the genome pair and each kernel's
+4e. the warm time of every route on the genome pair and each kernel's
    time against its plain version (CUDA events, turns plain, kernel,
-   kernel, plain), then one PyTorch call of the same function where there
-   is one (torch.searchsorted), and the kernel's bound (the bytes it must
-   move over 3.35 TB/s), beside the card's name and power limit;
+   kernel, plain; B1, B2 and B3 as bare launches, then through their
+   wrappers; both stream passes in one B2 launch), then one PyTorch call
+   of the same function where there is one (torch.searchsorted), and the
+   kernel's bound (the bytes it must move over 3.35 TB/s), beside the
+   card's name and power limit;
 5a. the materializing ``SELECT *`` at the 15M-row pairing
    (``gen_chain_table(20_000, 13)`` x ``gen_chain_table(300_000, 14)``):
    the host route for reference, then the device route on the merge
@@ -55,7 +62,9 @@ Phases, each of which exits non-zero when it fails:
    pairs, each timed), its level-bounds pass: the 2 probe-view pack_view
    launches and the one B1 launch for every level and both bounds, each
    equal to its plain version on the same inputs, the launch timed against
-   its plain version and its bound, and merge_level_bounds as a whole;
+   its plain version and its bound, with its ranks stored direct beside
+   one batched torch.searchsorted over the padded levels (the same ranks),
+   and merge_level_bounds as a whole;
 5b. ``sql_batches`` of ``SELECT *`` over the chr1 pair with
    max_output_batch_size = 1,000,000 on the device and host routes:
    153,690,858 rows, batches of at most 4,000,000 rows unless one probe
@@ -127,8 +136,9 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
     # B1's level mode: every level's pair of Pallas launches in one
     "merge_level_ranks": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:615"),
     "pack_view": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:158"),
-    "stream_rank_sorted": ("stream_rank.cu", "sequila_tpu/ops/pallas/stream_rank.py:86"),
-    "rank_sorted_resident": ("rank_kernel.cu", "sequila_tpu/ops/pallas/rank_kernel.py:126"),
+    # B2 and B3: one merge path over (key, value) pairs
+    "stream_rank_sorted": ("pair_merge.cu", "sequila_tpu/ops/pallas/stream_rank.py:86"),
+    "rank_sorted_resident": ("pair_merge.cu", "sequila_tpu/ops/pallas/rank_kernel.py:126"),
 }
 
 
@@ -284,7 +294,8 @@ def phase_kernels(torch, dev) -> dict:
             args = (a_k, a_v, q_k, q_v)
             got = rk.rank_sorted_resident(*args, strict=strict)
             want = rk.rank_resident_plain(*args, strict=strict)
-            d = max_diff(torch, got, want)
+            d = max(max_diff(torch, got, want),
+                    max_diff(torch, got, global_rank(torch, *args, strict)))
             s_got = int(rk.rank_sorted_resident(*args, strict=strict, reduce=True))
             s_want = int(rk.rank_resident_plain(*args, strict=strict, reduce=True))
             err["rank_sorted_resident"] = max(err["rank_sorted_resident"], d, abs(s_got - s_want))
@@ -293,9 +304,75 @@ def phase_kernels(torch, dev) -> dict:
                      f"max |diff| {d}, sums {s_got} vs {s_want}")
         print(f"rank_sorted_resident n={n_pad} m={m}: ranks and sums equal the global "
               f"rank for strict=True/False")
+    pair_edge_cases(torch, dev, rng, err)
     segmented_cases(torch, dev, rng, err)
     torch.cuda.synchronize()
     return err
+
+
+def pair_edge_cases(torch, dev, rng, err):
+    """One launch of the pair merge path (B2 and B3's kernel) over edge
+    segments, for both strict values: an empty table, empty queries, a
+    1-row table, tables far larger and far smaller than their queries, a
+    duplicate run longer than a tile, B2's exact windows and too-narrow
+    ones; each segment writes its ranks and adds its sum, held against the
+    plain version on copies of the same slots, exact."""
+    from sequila_tpu_torch.ops.cuda import pair_merge as pm
+    from sequila_tpu_torch.ops.cuda import stream_rank as sr
+
+    cases = [  # (table rows, queries, windows: None, "exact" or "narrow")
+        (0, 3000, None), (0, 257, "exact"), (4000, 0, None), (1, 70_000, "exact"),
+        (1, 1, None), (1_000_003, 37, None), (37, 1_000_003, "exact"),
+        (50_000, 20_011, "exact"), (20_011, 50_000, None),
+        (7 * pm.TILE + 3, 5 * pm.TILE, None), (6 * pm.CHUNK, 3000, "narrow"),
+    ]
+    for flip in (False, True):
+        cols = [[], [], [], [], [], []]  # a_k, a_v, q_k, q_v, c_lo, n_chunks
+        segs, off = [], [0, 0, 0]  # table, queries, windows
+        for i, (n, m, win) in enumerate(cases):
+            a_k, a_v = sorted_pairs(rng, n, n, 24, torch, dev)
+            if i == 9:  # duplicate runs longer than a tile
+                run = torch.arange(n, device=dev) // (3 * pm.TILE) * (3 * pm.TILE)
+                a_k, a_v = a_k[run], a_v[run]
+            q_k, q_v = sorted_pairs(rng, m, -(-m // pm.BLOCK) * pm.BLOCK, 25, torch, dev)
+            kw = {}
+            if win is not None:
+                blocks = -(-m // pm.BLOCK)
+                if win == "exact":
+                    c_lo, n_ch = sr.device_windows(a_k, a_v, q_k, q_v)
+                else:
+                    c_lo = torch.from_numpy(rng.integers(0, n // pm.CHUNK, blocks)).to(dev)
+                    n_ch = torch.from_numpy(rng.integers(-1, 2, blocks)).to(dev)
+                cols[4].append(c_lo.to(torch.int32))
+                cols[5].append(n_ch.to(torch.int32))
+                kw = dict(c_lo=(6, off[2]), n_chunks=(7, off[2]))
+                off[2] += blocks
+            segs.append(pm.PairSegment(
+                n, m, a_k=(0, off[0]), a_v=(1, off[0]), q_k=(2, off[1]), q_v=(3, off[1]),
+                strict=(i % 2 == 1) != flip, out=(4, off[1]), total=(5, i), **kw))
+            for c, t in zip(cols, (a_k, a_v, q_k[:m], q_v[:m])):
+                c.append(t)
+            off[0] += n
+            off[1] += m
+        slots = (*(torch.cat(c) for c in cols[:4]),
+                 torch.full((off[1],), -1, dtype=torch.int32, device=dev),
+                 torch.zeros(len(cases), dtype=torch.int64, device=dev),
+                 *(torch.cat(c) for c in cols[4:]))
+        want = tuple(t.clone() for t in slots)
+        before = pm.pair_merge_segments.launches
+        pm.pair_merge_segments(pm.plan_pair_segments(segs, dev), slots)
+        torch.cuda.synchronize()
+        if pm.pair_merge_segments.launches != before + 1:
+            fail(f"pair merge edge segments: {pm.pair_merge_segments.launches - before} "
+                 "launches, not 1")
+        pm.pair_segments_plain(segs, want)
+        d = max(max_diff(torch, g, w) for g, w in zip(slots, want))
+        err["stream_rank_sorted"] = max(err["stream_rank_sorted"], d)
+        err["rank_sorted_resident"] = max(err["rank_sorted_resident"], d)
+        if d:
+            fail(f"pair merge edge segments (flip={flip}): max |diff| {d} against plain")
+        print(f"pair merge: {len(segs)} edge segments (flip={flip}) in one launch, ranks "
+              "and sums equal plain")
 
 
 def perm(torch, rng, n, dev):
@@ -564,6 +641,16 @@ def phase_backends(torch, sessions):
         torch.cuda.synchronize()
         out[backend] = launches()
         print(f"backend={backend}: kernel launches {out[backend]}")
+        if backend == "stream":  # a warm stream count(*): both passes in one B2 launch
+            name, ctx, expected, _, _ = sessions[1]
+            warm = reset_launches()
+            if count(ctx, bd.QUERY) != expected:
+                fail(f"{name} backend=stream: the warm query's count differs")
+            torch.cuda.synchronize()
+            warm = warm()
+            if warm != {**dict.fromkeys(warm, 0), "stream_rank_sorted": 1}:
+                fail(f"a warm stream count(*) launched {warm}, expected B2 once and nothing else")
+            print(f"warm {name} stream count(*): B2 launched once (both passes)")
     del os.environ["SEQUILA_COUNT_BACKEND"]
     if out["stream"]["stream_rank_sorted"] <= 0:
         fail("kernel stream_rank_sorted was not launched by the stream route")
@@ -655,6 +742,7 @@ def phase_times(torch, sessions, card, err, resident_cols):
     print("== phase 4e: warm route times and kernel vs plain times", flush=True)
     from sequila_tpu_torch import bench_data as bd
     from sequila_tpu_torch.ops.cuda import merge_count as mc
+    from sequila_tpu_torch.ops.cuda import pair_merge as pm
     from sequila_tpu_torch.ops.cuda import rank_kernel as rk
     from sequila_tpu_torch.ops.cuda import stream_rank as sr
     from sequila_tpu_torch.ops.cuda.stream_rank import sorted_padded
@@ -683,10 +771,9 @@ def phase_times(torch, sessions, card, err, resident_cols):
     q2 = mc.pack_view(*plan[6:9], mc.BUILD_PAD)
     a2 = mc.pack_view(*plan[9:12], mc.PROBE_PAD)
     l_on, r_on, bs_cd, be_cd, qs_cd, qe_cd = inputs[:6]
-    pass_u, _ = sr.stream_pass_inputs(
-        *join._stream_count_plan(left, right, *inputs),
-        d_bs=bs_cd[1], d_be=be_cd[1], d_qs=qs_cd[1], d_qe=qe_cd[1],
-    )
+    deltas = dict(d_bs=bs_cd[1], d_be=be_cd[1], d_qs=qs_cd[1], d_qe=qe_cd[1])
+    splan = join._stream_count_plan(left, right, *inputs)
+    pass_u, pass_l = sr.stream_pass_inputs(*splan, **deltas)
     d = max(max_diff(torch, sr.stream_rank_sorted(*pass_u, strict=False),
                      sr.stream_rank_plain(*pass_u, strict=False)),
             max_diff(torch, sr.stream_rank_sorted(*pass_u, strict=False),
@@ -696,6 +783,14 @@ def phase_times(torch, sessions, card, err, resident_cols):
         fail(f"stream_rank_sorted at the genome pair's own windows: max |diff| {d}")
     print(f"stream_rank_sorted at the genome pair's own stream windows: equal to plain "
           f"and to the global rank (windows of up to {int(pass_u[2].max())} chunks)")
+    # both stream passes in one launch, as stream_count_passes makes it
+    count_launch, totals = sr.stream_count_launcher(pass_u, pass_l)
+    count_launch()
+    want = [int(sr.stream_rank_plain(*pass_u, strict=False, reduce=True)),
+            int(sr.stream_rank_plain(*pass_l, strict=True, reduce=True))]
+    if totals.tolist() != want:
+        fail(f"the stream count's launch: sums {totals.tolist()} != plain {want}")
+    print(f"stream_count_passes' launch (both passes): sums {want} equal plain")
     a_k, a_v, _ = sorted_padded(*resident_cols[:2], resident_cols[0].numel())
     r_k, r_v, _ = sorted_padded(*resident_cols[2:], resident_cols[2].numel())
     # the library yardsticks' inputs, built outside the timed window: u32
@@ -703,8 +798,18 @@ def phase_times(torch, sessions, card, err, resident_cols):
     # int64 (key, value) composites
     a1_s, q1_s = (t ^ torch.tensor(-(2**31), dtype=torch.int32, device=t.device) for t in (a1, q1))
     u_a, u_q = composite(pass_u[0][0], pass_u[0][1]), composite(*pass_u[3:])
+    l_a, l_q = composite(pass_l[0][0], pass_l[0][1]), composite(*pass_l[3:])
     r_a, r_q = composite(a_k, a_v), composite(r_k, r_v)
     ranks1 = torch.empty(q1.numel(), dtype=torch.int32, device=q1.device)
+    # B2 and B3 alone: their wrappers' one-segment plans, launched bare
+    u_total = torch.zeros(1, dtype=torch.int64, device=a1.device)
+    b2_launch = pm.segments_launcher(
+        pm._rank_plan(pass_u[0].shape[1], pass_u[3].numel(), False, True, True, a1.device),
+        (pass_u[0][0], pass_u[0][1], *pass_u[3:], u_total, *pass_u[1:3]), sr.stream_rank_sorted)
+    r_ranks = torch.empty(r_k.numel(), dtype=torch.int32, device=r_k.device)
+    b3_launch = pm.segments_launcher(
+        pm._rank_plan(a_k.numel(), r_k.numel(), True, False, False, a_k.device),
+        (a_k, a_v, r_k, r_v, r_ranks), rk.rank_sorted_resident)
     cases = {  # name: (plain, kernel, library or None, bytes moved, operations, shape)
         "pack_view": (
             lambda: mc.pack_view_plain(pq_k, pq_v, c_pq, mc.PROBE_PAD),
@@ -721,23 +826,47 @@ def phase_times(torch, sessions, card, err, resident_cols):
             nbytes(a1, q1, ranks1), a1.numel() + q1.numel(),
             f"N={a1.numel()} M={q1.numel()} ranks",
         ),
-        "stream_rank_sorted": (
+        "stream_rank_sorted": (  # the launch alone
             lambda: sr.stream_rank_plain(*pass_u, strict=False, reduce=True),
-            lambda: sr.stream_rank_sorted(*pass_u, strict=False, reduce=True),
+            b2_launch,
             lambda: torch.searchsorted(u_a, u_q, right=True),
             nbytes(*pass_u) + 8, pass_u[0].shape[1] + pass_u[3].numel(),
             f"N={pass_u[0].shape[1]} M={pass_u[3].numel()} reduce=True, the genome "
-            "pair's stream pass u",
+            "pair's stream pass u, bare launch",
         ),
-        "rank_sorted_resident": (
+        "rank_sorted_resident": (  # the launch alone
             lambda: rk.rank_resident_plain(a_k, a_v, r_k, r_v, strict=True),
-            lambda: rk.rank_sorted_resident(a_k, a_v, r_k, r_v, strict=True),
-            lambda: torch.searchsorted(r_a, r_q),
-            nbytes(a_k, a_v, r_k, r_v) + 4 * r_k.numel(), a_k.numel() + r_k.numel(),
-            f"N={a_k.numel()} M={r_k.numel()} ranks",
+            b3_launch,
+            lambda: torch.searchsorted(r_a, r_q, out_int32=True, out=r_ranks),
+            nbytes(a_k, a_v, r_k, r_v, r_ranks), a_k.numel() + r_k.numel(),
+            f"N={a_k.numel()} M={r_k.numel()} ranks, bare launch",
         ),
     }
     kernel_ms = {name: time_kernel(torch, name, *case, card) for name, case in cases.items()}
+    # B2 and B3 through their wrappers, host work included
+    time_kernel(
+        torch, "stream_rank_sorted wrapper",
+        lambda: sr.stream_rank_plain(*pass_u, strict=False, reduce=True),
+        lambda: sr.stream_rank_sorted(*pass_u, strict=False, reduce=True), None,
+        nbytes(*pass_u) + 8, pass_u[0].shape[1] + pass_u[3].numel(), "reduce=True", card)
+    time_kernel(
+        torch, "rank_sorted_resident wrapper",
+        lambda: rk.rank_resident_plain(a_k, a_v, r_k, r_v, strict=True),
+        lambda: rk.rank_sorted_resident(a_k, a_v, r_k, r_v, strict=True), None,
+        nbytes(a_k, a_v, r_k, r_v, r_ranks), a_k.numel() + r_k.numel(), "ranks", card)
+    # both stream passes in one launch; the library yardstick is two calls
+    time_kernel(
+        torch, "stream_count_passes' B2 launch (both passes)",
+        lambda: (sr.stream_rank_plain(*pass_u, strict=False, reduce=True)
+                 - sr.stream_rank_plain(*pass_l, strict=True, reduce=True)),
+        count_launch,
+        lambda: (torch.searchsorted(u_a, u_q, right=True), torch.searchsorted(l_a, l_q)),
+        nbytes(*pass_u, *pass_l) + 16,
+        sum(p[0].shape[1] + p[3].numel() for p in (pass_u, pass_l)),
+        "S=2, sums; library: two torch.searchsorted calls", card)
+    whole = time_events(torch, lambda: sr.stream_count_passes(*splan, **deltas), TIMED_LAUNCHES)
+    print(f"stream_count_passes whole (its glue and 1 B2 launch, host work included): "
+          f"{whole:.4f} ms [{card}]", flush=True)
     # beside them: the wrapper with its host work, as the main path calls
     # it, in ranks and (for continuity with the first design's records)
     # reduce mode, and the count's two passes in one segmented launch
@@ -979,9 +1108,32 @@ def phase_emission_parts(torch, ctx, card, err):
     # the same segments with the ranks stored direct (sorted order, no
     # order): the difference is what the scattered stores cost
     direct = mc.plan_segments([s._replace(ord=None) for s in segplan.segs], q_e.device)
-    t_direct = time_events(torch, mc.segments_launcher(direct, (q_e, q_s, out)), TIMED_LAUNCHES)
+    direct_launch = mc.segments_launcher(direct, (q_e, q_s, out))
+    t_direct = time_events(torch, direct_launch, TIMED_LAUNCHES)
     print(f"the level launch with its ranks stored direct, not through the orders: "
           f"{t_direct:.4f} ms [{card}]", flush=True)
+    # the library yardstick: one batched torch.searchsorted over the levels
+    # padded to [2L, longest level] (u32 values as int64, padding 2^32)
+    # gives the direct launch's ranks in sorted probe order; a strict bound
+    # ranks q - 1, as #{a < q} = #{a <= q - 1}
+    lev = torch.full((2 * L, max(sizes)), 2**32, dtype=torch.int64, device=q_e.device)
+    qry = torch.empty((2 * L, q_e.numel()), dtype=torch.int64, device=q_e.device)
+    for s in segplan.segs:
+        row = s.out[1] // n
+        lev[row, :s.n] = mc.as_u32(mc.pack_view_plain(*s.raw))
+        qry[row] = mc.as_u32((q_e, q_s)[s.q[0]]) - int(s.strict)
+    lib_out = torch.empty(qry.shape, dtype=torch.int32, device=q_e.device)
+    direct_launch()
+    torch.searchsorted(lev, qry, right=True, out_int32=True, out=lib_out)
+    if not torch.equal(lib_out[:, :n], out.view(2 * L, n)):
+        fail("the batched torch.searchsorted differs from the direct level launch")
+    t_lib = time_events(
+        torch, lambda: torch.searchsorted(lev, qry, right=True, out_int32=True, out=lib_out),
+        TIMED_LAUNCHES)
+    level_ms["library_ms"] = t_lib
+    print(f"one batched torch.searchsorted over the [{2 * L}, {max(sizes)}] padded levels, "
+          f"the same ranks as the direct launch: {t_lib:.4f} ms [{card}]", flush=True)
+    del lev, qry, lib_out
     whole = time_events(torch, lambda: mc.merge_level_bounds(plan), TIMED_LAUNCHES)
     print(f"merge_level_bounds whole (2 pack_view + 1 B1 launch): {whole:.4f} ms [{card}]",
           flush=True)

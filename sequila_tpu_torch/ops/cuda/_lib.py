@@ -108,10 +108,8 @@ def lib() -> ctypes.CDLL:
             cdll.seq_pack_view.argtypes = [vp, vp, vp, i32, ctypes.c_uint32, vp, i64, vp]
             cdll.seq_merge_path.restype = ctypes.c_int
             cdll.seq_merge_path.argtypes = [vp, vp, i32, i64, vp, vp]
-            cdll.seq_stream_rank.restype = ctypes.c_int
-            cdll.seq_stream_rank.argtypes = [vp, vp, i64, vp, vp, vp, vp, i64, i32, vp, vp, vp]
-            cdll.seq_resident_rank.restype = ctypes.c_int
-            cdll.seq_resident_rank.argtypes = [vp, vp, i64, vp, vp, i64, i32, vp, vp, vp]
+            cdll.seq_pair_merge.restype = ctypes.c_int
+            cdll.seq_pair_merge.argtypes = [vp, vp, i32, i64, vp, vp]
             _LIB = cdll
         return _LIB
 

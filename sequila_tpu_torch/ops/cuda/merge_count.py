@@ -359,11 +359,12 @@ def _slot(slots, ref, length: int, dtype) -> torch.Tensor:
     return t[off:off + length]
 
 
-def _check_slots(plan: SegmentPlan, slots) -> torch.device:
+def _check_slots(plan, slots, n_slots: int = N_SLOTS) -> torch.device:
     """Validate the per-call tensors against the plan's needs (per slot,
-    not per segment: a warm call stays cheap); their device."""
-    if not len(plan.need) <= len(slots) <= N_SLOTS:
-        raise ValueError(f"the plan reads {len(plan.need)} slots of at most {N_SLOTS}, "
+    not per segment: a warm call stays cheap); their device.  ``plan`` is
+    a SegmentPlan, or any plan with its ``need`` and ``device``."""
+    if not len(plan.need) <= len(slots) <= n_slots:
+        raise ValueError(f"the plan reads {len(plan.need)} slots of at most {n_slots}, "
                          f"got {len(slots)}")
     for i, t in enumerate(slots):
         if t.dim() != 1 or not t.is_contiguous():

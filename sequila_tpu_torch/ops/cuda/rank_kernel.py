@@ -1,12 +1,11 @@
-"""Lexicographic ranks against a resident build that finds its own windows.
+"""Lexicographic ranks against a resident build.
 
 Port of sequila_tpu/ops/pallas/rank_kernel.py.  ``rank_sorted_resident``
 ranks sorted int32 (key, value) queries in a sorted build of at most
-MAX_RESIDENT_BUILD rows: the hand-written CUDA kernel csrc/rank_kernel.cu
-(B3).  Each block of BLOCK queries loads the build's chunk-boundary
-elements into shared memory, finds its window of chunks there with two
-binary searches, and searches the window in global memory — no host
-windows, which is what separates it from the stream kernel (B2).
+MAX_RESIDENT_BUILD rows: one segment of the hand-written CUDA merge path
+over pairs, csrc/pair_merge.cu (B3, ops/cuda/pair_merge.py), with no
+windows at all — what separated the TPU kernel from the stream kernel
+(B2) was that it found its own.
 
 ``rank_lex_resident`` is the drop-in for ops/ranks.rank_lex_sort on
 2-tuple keys (the JAX package's ``rank_lex_pallas``): it sorts both sides,
@@ -23,22 +22,21 @@ from __future__ import annotations
 
 import torch
 
-from sequila_tpu_torch.ops.cuda.merge_count import _check, _same_device
-from sequila_tpu_torch.ops.cuda.stream_rank import BLOCK, CHUNK, sorted_padded
-from sequila_tpu_torch.ops.ranks import composite, rank_lex_sort
+from sequila_tpu_torch.ops.cuda.merge_count import _check
+from sequila_tpu_torch.ops.cuda.pair_merge import BLOCK, CHUNK, pair_rank_plain, rank_pairs
+from sequila_tpu_torch.ops.cuda.stream_rank import sorted_padded
+from sequila_tpu_torch.ops.ranks import rank_lex_sort
 
-# the chunk-boundary table (MAX / CHUNK = 512 pairs, 4 KB) must fit shared
-# memory; the JAX package's MAX_VMEM_BUILD
+# the JAX package's MAX_VMEM_BUILD: its contract, kept though the merge
+# path has no cap of its own
 MAX_RESIDENT_BUILD = 1 << 20
 
 
 def rank_resident_plain(a_keys, a_vals, q_keys, q_vals, *, strict: bool,
                         reduce: bool = False) -> torch.Tensor:
     """Plain PyTorch rank_sorted_resident: one searchsorted over int64
-    composites (the kernel's windows are exact for sorted inputs)."""
-    ranks = torch.searchsorted(
-        composite(a_keys, a_vals), composite(q_keys, q_vals), right=not strict
-    )
+    composites."""
+    ranks = pair_rank_plain(a_keys, a_vals, q_keys, q_vals, strict=strict)
     if reduce:
         return ranks.sum()
     return ranks.to(torch.int32)
@@ -50,7 +48,8 @@ def rank_sorted_resident(a_keys, a_vals, q_keys, q_vals, *, strict: bool,
     a_vals), whose length is a multiple of CHUNK and at most
     MAX_RESIDENT_BUILD.  strict=True counts build tuples ``<`` the query,
     strict=False ``<=``.  Returns int32 ranks, or with ``reduce=True``
-    their int64 sum as a 0-d tensor.
+    their int64 sum as a 0-d tensor.  One segment of the pair-merge launch
+    (pair_merge.py).
     Replaces the TPU kernel sequila_tpu/ops/pallas/rank_kernel.py:126
     ::_pallas_rank_sorted (B3)."""
     for t, name in ((a_keys, "a_keys"), (a_vals, "a_vals"), (q_keys, "q_keys"),
@@ -65,27 +64,8 @@ def rank_sorted_resident(a_keys, a_vals, q_keys, q_vals, *, strict: bool,
             f"build of {n_pad} rows: expected a multiple of {CHUNK}, at most "
             f"{MAX_RESIDENT_BUILD}"
         )
-    dev = _same_device(a_keys, a_vals, q_keys, q_vals)
-    if dev.type == "cpu":
-        return rank_resident_plain(a_keys, a_vals, q_keys, q_vals,
-                                   strict=strict, reduce=reduce)
-    from sequila_tpu_torch.ops.cuda import _lib
-
-    total = torch.zeros((), dtype=torch.int64, device=dev) if reduce else None
-    ranks = None if reduce else torch.empty(m, dtype=torch.int32, device=dev)
-    if m == 0:
-        return total if reduce else ranks
-    with torch.cuda.device(dev):
-        err = _lib.lib().seq_resident_rank(
-            a_keys.data_ptr(), a_vals.data_ptr(), n_pad, q_keys.data_ptr(),
-            q_vals.data_ptr(), m, int(strict),
-            None if reduce else ranks.data_ptr(),
-            total.data_ptr() if reduce else None,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _lib.check(err, "rank_sorted_resident")
-    rank_sorted_resident.launches += 1
-    return total if reduce else ranks
+    return rank_pairs(a_keys, a_vals, q_keys, q_vals, strict=strict, reduce=reduce,
+                      counter=rank_sorted_resident)
 
 
 rank_sorted_resident.launches = 0

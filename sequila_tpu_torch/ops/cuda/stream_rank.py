@@ -6,35 +6,46 @@ tables' cached (key, value)-sorted views, with no device sort:
 - ``host_windows`` (numpy, copied) gives each block of BLOCK sorted
   queries its window of CHUNK-row build chunks ``[c_lo, c_lo + n_chunks)``
   from int64 composites of the cached host views;
-- ``stream_rank_sorted`` ranks the queries inside their windows: the
-  hand-written CUDA kernel csrc/stream_rank.cu (B2), which stages each
-  window chunk through shared memory;
+- ``stream_rank_sorted`` ranks the queries, each clamped to its block's
+  window: one windowed segment of the hand-written CUDA merge path over
+  pairs, csrc/pair_merge.cu (B2, ops/cuda/pair_merge.py), which reads
+  every build and query pair once whatever the windows;
 - ``stream_count_passes`` runs the two BITS passes over the views
   ``stream_pass_inputs`` prepares (both sides' codes remapped into the
   joint key space, the planner's ±lit deltas and the PAD rules applied)
-  and sums them into one int64 (the JAX package returned 64-bucket int32
-  partials).
+  as two segments of one launch, each summed into its own int64 (the JAX
+  package returned 64-bucket int32 partials).
 
 Comparisons are signed int32 lexicographic on (key, value).  The wrapper
 launches its CUDA kernel for CUDA tensors (or raises) and runs its plain
 PyTorch version only for CPU tensors; ``stream_rank_sorted.launches``
-counts kernel launches.
+counts kernel launches, those of ``stream_count_passes`` included.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from sequila_tpu_torch.ops.cuda.merge_count import _check, _same_device
+from sequila_tpu_torch.ops.cuda.merge_count import _check
+from sequila_tpu_torch.ops.cuda.pair_merge import (
+    BLOCK,
+    CHUNK,
+    PairPlan,
+    PairSegment,
+    pair_rank_plain,
+    plan_pair_segments,
+    rank_pairs,
+    segments_launcher,
+)
 from sequila_tpu_torch.ops.ranks import composite
 
-BLOCK = 256
-CHUNK = 2048
 PAD = 2**31 - 1
 
 
-def _check_build(a2: torch.Tensor) -> int:
+def _check_build(a2: torch.Tensor) -> None:
     if a2.dtype != torch.int32:
         raise TypeError(f"a2: expected torch.int32, got {a2.dtype}")
     if a2.dim() != 2 or a2.shape[0] != 2 or a2.shape[1] % CHUNK:
@@ -43,7 +54,6 @@ def _check_build(a2: torch.Tensor) -> int:
         raise ValueError("a2: expected a contiguous tensor")
     if a2.shape[1] >= 2**31:
         raise ValueError(f"build of {a2.shape[1]} rows: ranks must fit int32")
-    return a2.shape[1]
 
 
 def stream_rank_plain(a2, c_lo, n_chunks, q_keys, q_vals, *, strict: bool,
@@ -52,16 +62,8 @@ def stream_rank_plain(a2, c_lo, n_chunks, q_keys, q_vals, *, strict: bool,
     composites, clamped to each block's window — the kernel's
     ``c_lo * CHUNK + #{build rows of the window before q}`` for windows
     with ``c_lo >= 0``."""
-    n_pad = a2.shape[1]
-    m = q_keys.numel()
-    ranks = torch.searchsorted(
-        composite(a2[0], a2[1]), composite(q_keys, q_vals), right=not strict
-    )
-    blk = torch.arange(m, device=q_keys.device) // BLOCK
-    lo = c_lo.to(torch.int64)[blk]
-    w0 = lo * CHUNK
-    w1 = torch.clamp((lo + n_chunks.to(torch.int64)[blk].clamp(min=0)) * CHUNK, max=n_pad)
-    ranks = torch.minimum(torch.maximum(ranks, w0), torch.maximum(w1, w0))
+    ranks = pair_rank_plain(a2[0], a2[1], q_keys, q_vals, strict=strict, c_lo=c_lo,
+                            n_chunks=n_chunks)
     if reduce:
         return ranks.sum()
     return ranks.to(torch.int32)
@@ -76,10 +78,11 @@ def stream_rank_sorted(a2, c_lo, n_chunks, q_keys, q_vals, *, strict: bool,
     ``c_lo``/``n_chunks`` (int32, one per block of BLOCK queries) are the
     windows of ``host_windows``; strict=True counts build tuples ``<`` the
     query, strict=False ``<=``.  Returns int32 ranks, or with
-    ``reduce=True`` their int64 sum as a 0-d tensor.
+    ``reduce=True`` their int64 sum as a 0-d tensor.  One windowed segment
+    of the pair-merge launch (pair_merge.py).
     Replaces the TPU kernel sequila_tpu/ops/pallas/stream_rank.py:86
     ::_stream_rank_sorted (B2)."""
-    n_pad = _check_build(a2)
+    _check_build(a2)
     for t, name in ((c_lo, "c_lo"), (n_chunks, "n_chunks"), (q_keys, "q_keys"),
                     (q_vals, "q_vals")):
         _check(t, name)
@@ -92,29 +95,8 @@ def stream_rank_sorted(a2, c_lo, n_chunks, q_keys, q_vals, *, strict: bool,
             f"{blocks} query blocks need as many windows, got {c_lo.numel()} and "
             f"{n_chunks.numel()}"
         )
-    dev = _same_device(a2, c_lo, n_chunks, q_keys, q_vals)
-    if dev.type == "cpu":
-        return stream_rank_plain(a2, c_lo, n_chunks, q_keys, q_vals,
-                                 strict=strict, reduce=reduce)
-    from sequila_tpu_torch.ops.cuda import _lib
-
-    if a2.data_ptr() % 16:
-        raise ValueError("a2: the kernel's 16-byte loads need a 16-byte aligned tensor")
-    total = torch.zeros((), dtype=torch.int64, device=dev) if reduce else None
-    ranks = None if reduce else torch.empty(m, dtype=torch.int32, device=dev)
-    if m == 0:
-        return total if reduce else ranks
-    with torch.cuda.device(dev):
-        err = _lib.lib().seq_stream_rank(
-            a2.data_ptr(), a2[1].data_ptr(), n_pad, c_lo.data_ptr(), n_chunks.data_ptr(),
-            q_keys.data_ptr(), q_vals.data_ptr(), m, int(strict),
-            None if reduce else ranks.data_ptr(),
-            total.data_ptr() if reduce else None,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _lib.check(err, "stream_rank_sorted")
-    stream_rank_sorted.launches += 1
-    return total if reduce else ranks
+    return rank_pairs(a2[0], a2[1], q_keys, q_vals, strict=strict, reduce=reduce,
+                      windows=(c_lo, n_chunks), counter=stream_rank_sorted)
 
 
 stream_rank_sorted.launches = 0
@@ -131,12 +113,48 @@ def stream_count_passes(*views, d_bs: int, d_be: int, d_qs: int, d_qe: int) -> t
 
     Pass u ranks the probe (k, qe) view in the build (k, start) view
     (#{start <= qe}); pass l ranks the probe (k, qs) view in the build
-    (k, end) view (#{end < qs}).  Returns their difference as an int64
-    0-d tensor.  Degenerate (qs > qe) rows must be pre-excluded."""
+    (k, end) view (#{end < qs}); both in ONE launch (one B2 launch on the
+    card).  Returns their difference as an int64 0-d tensor.  Degenerate
+    (qs > qe) rows must be pre-excluded."""
     pass_u, pass_l = stream_pass_inputs(*views, d_bs=d_bs, d_be=d_be, d_qs=d_qs, d_qe=d_qe)
-    ub = stream_rank_sorted(*pass_u, strict=False, reduce=True)
-    lb = stream_rank_sorted(*pass_l, strict=True, reduce=True)
-    return ub - lb
+    launch, totals = stream_count_launcher(pass_u, pass_l)
+    launch()
+    return totals[0] - totals[1]
+
+
+def count_segments(n_u: int, m_u: int, n_l: int, m_l: int) -> tuple:
+    """The two segments of a stream count(*) over the slots of
+    stream_count_launcher: pass u non-strict into totals[0], pass l strict
+    into totals[1], each clamped to its own windows."""
+
+    def seg(base, n, m, strict, total):
+        return PairSegment(n, m, a_k=(base, 0), a_v=(base + 1, 0), q_k=(base + 2, 0),
+                           q_v=(base + 3, 0), strict=strict, c_lo=(base + 4, 0),
+                           n_chunks=(base + 5, 0), total=(12, total))
+
+    return seg(0, n_u, m_u, False, 0), seg(6, n_l, m_l, True, 1)
+
+
+@functools.lru_cache(maxsize=64)
+def _count_plan(n_u: int, m_u: int, n_l: int, m_l: int, device: torch.device) -> PairPlan:
+    return plan_pair_segments(count_segments(n_u, m_u, n_l, m_l), device)
+
+
+def stream_count_launcher(pass_u, pass_l):
+    """(launch, totals): ``launch()`` adds both passes' rank sums into the
+    int64 ``totals`` [u, l] in one pair-merge launch over the slots
+    (a_k, a_v, q_k, q_v, c_lo, n_chunks) of pass u, the same of pass l,
+    then totals.  Each launch on the card adds one to
+    ``stream_rank_sorted.launches``; the bare launch is what a timing of
+    the kernel alone should call."""
+    slots = []
+    for a2, c_lo, n_chunks, q_keys, q_vals in (pass_u, pass_l):
+        _check_build(a2)
+        slots += [a2[0], a2[1], q_keys, q_vals, c_lo, n_chunks]
+    totals = torch.zeros(2, dtype=torch.int64, device=pass_u[3].device)
+    plan = _count_plan(pass_u[0].shape[1], pass_u[3].numel(), pass_l[0].shape[1],
+                       pass_l[3].numel(), totals.device)
+    return segments_launcher(plan, (*slots, totals), stream_rank_sorted), totals
 
 
 def stream_pass_inputs(

@@ -223,6 +223,34 @@ class TestKernelOnCard:
         assert torch.equal(got, want)
         assert int(total) == int(want.to(torch.int64).sum())
 
+    def test_stream_count_passes_is_one_launch(self, rng, cuda_device):
+        """Both passes of a stream count(*) in one B2 launch, the same
+        count as the plain version over the same plan on the CPU."""
+        from sequila_tpu_torch.exec.joins.interval_join import IntervalJoinExec
+        from sequila_tpu_torch.exec.plan import ScanExec
+        from sequila_tpu_torch.models.table import Table
+        from sequila_tpu_torch.planner.expr import BinaryExpr, Column, Literal
+        from sequila_tpu_torch.planner.intervals import ColInterval, ColIntervals
+
+        left, right = _table_pair(rng, 20_000, 30_000)
+        lt, rt = Table(left), Table(right)
+        end = BinaryExpr(Column("x", 2), "-", Literal(1))
+        counts = []
+        for device in ("cpu", cuda_device.type):
+            join = IntervalJoinExec(
+                ScanExec("l", lt), ScanExec("r", rt),
+                on=[(Column("contig", 0), Column("contig", 0))], filter_=None,
+                intervals=ColIntervals(ColInterval(Column("x", 1), end),
+                                       ColInterval(Column("x", 1), Column("x", 2))),
+                device=device,
+            )
+            plan = join._stream_count_plan(lt, rt, *join._sorted_count_inputs(lt, rt))
+            before = tsr.stream_rank_sorted.launches
+            counts.append(int(tsr.stream_count_passes(*plan, d_bs=0, d_be=-1, d_qs=0, d_qe=0)))
+            torch.cuda.synchronize()
+            assert tsr.stream_rank_sorted.launches == before + (device != "cpu")
+        assert counts[0] == counts[1] > 0
+
     def test_rank_lex_stream_on_card(self, rng, cuda_device):
         bk = rng.integers(0, 30, 200_000).astype(np.int32)
         bv = rng.integers(-(10**6), 10**6, 200_000).astype(np.int32)

@@ -1,5 +1,6 @@
-"""Time B1 (merge_rank_sorted and its callers) of several source trees of
-sequila_tpu_torch on one NVIDIA GPU, in turns, beside torch.searchsorted.
+"""Time the rank kernels B1 (merge_rank_sorted and its callers), B2
+(stream_rank_sorted) and B3 (rank_sorted_resident) of several source trees
+of sequila_tpu_torch on one NVIDIA GPU, in turns, beside torch.searchsorted.
 
     python3 tools/b1_compare.py --tree local/parent --tree . --tree . --tree local/parent
 
@@ -14,6 +15,16 @@ main path's shapes:
   values XOR the sign bit (int32), and merge_count_passes whole (4 pack_view
   and the tree's B1 launches), and where the tree has the segmented B1,
   its bare launches (ranks, and both count passes);
+- B2 on that pair's stream route (its own host windows): pass u in reduce
+  mode through the wrapper, both passes (two wrapper calls, or where the
+  tree has stream_count_launcher its one bare launch) and, where the tree
+  has the pair merge path, pass u's bare launch; torch.searchsorted over
+  int64 composites of pass u; the sums checked against it;
+  stream_count_passes whole (its glue included), and the warm count(*)
+  query on the merge and stream routes (host clock, medians of 10);
+- B3 at its cap (a 2^20-row build, 2,351,104 queries, ranks, both sorted,
+  seed 4): the wrapper, the bare launch where the tree has the pair merge
+  path, and torch.searchsorted over int64 composites, ranks checked;
 - the 15M SELECT * pairing (gen_chain_table(20_000, 13) x (300_000, 14)) on
   the device merge route: merge_level_bounds whole (and the segmented B1's
   bare level launch), and the pairs its bounds hold (14,729,736 when right);
@@ -28,6 +39,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 REPS = 20
 
@@ -100,7 +112,9 @@ def worker() -> None:
                              a1.device), (a1, q1, a2, q2, totals)))
     out["count_passes_launches"] = launches(lambda: mc.merge_count_passes(*plan))
     out["count"] = int(mc.merge_count_passes(*plan))
-    del ctx, plan, q1, a1, a_s, q_s, ranks
+    del plan, q1, a1, a_s, q_s, ranks
+    stream_and_resident(torch, ms, ctx, out)
+    del ctx
 
     os.environ["SEQUILA_HOST_THRESHOLD"] = "0"
     query = ("SELECT * FROM s1 a JOIN s2 b ON a.contig = b.contig "
@@ -128,6 +142,74 @@ def worker() -> None:
         out["level_launch_ms"] = ms(mc.segments_launcher(bplan[0], (q_e, q_s, bounds)))
     out["level_bounds_launches"] = launches(lambda: mc.merge_level_bounds(bplan))
     print(json.dumps(out), flush=True)
+
+
+def stream_and_resident(torch, ms, ctx, out) -> None:
+    """B2 at the genome pair's stream pass u and both passes, and B3 at its
+    cap, each tree through its own entry points (see the module note)."""
+    import numpy as np
+
+    from sequila_tpu_torch import bench_data as bd
+    from sequila_tpu_torch.ops.cuda import rank_kernel as rk
+    from sequila_tpu_torch.ops.cuda import stream_rank as sr
+    from sequila_tpu_torch.ops.ranks import composite
+
+    join = ctx.plan_sql(bd.QUERY).children[0]
+    left, right = ctx.table("s1"), ctx.table("s2")
+    inputs = join._sorted_count_inputs(left, right)
+    bs_cd, be_cd, qs_cd, qe_cd = inputs[2:6]
+    deltas = dict(d_bs=bs_cd[1], d_be=be_cd[1], d_qs=qs_cd[1], d_qe=qe_cd[1])
+    splan = join._stream_count_plan(left, right, *inputs)
+    pass_u, pass_l = sr.stream_pass_inputs(*splan, **deltas)
+    u_a, u_q = composite(pass_u[0][0], pass_u[0][1]), composite(*pass_u[3:])
+    want = int(torch.searchsorted(u_a, u_q, right=True).sum())
+    if int(sr.stream_rank_sorted(*pass_u, strict=False, reduce=True)) != want:
+        sys.exit("B2's pass u sum differs from torch.searchsorted's")
+    out["b2_u_ms"] = ms(lambda: sr.stream_rank_sorted(*pass_u, strict=False, reduce=True))
+    out["b2_searchsorted_ms"] = ms(lambda: torch.searchsorted(u_a, u_q, right=True))
+    if hasattr(sr, "stream_count_launcher"):  # the pair merge path
+        from sequila_tpu_torch.ops.cuda import pair_merge as pm
+
+        total = torch.zeros(1, dtype=torch.int64, device=u_a.device)
+        out["b2_u_launch_ms"] = ms(pm.segments_launcher(
+            pm._rank_plan(pass_u[0].shape[1], pass_u[3].numel(), False, True, True, u_a.device),
+            (pass_u[0][0], pass_u[0][1], *pass_u[3:], total, *pass_u[1:3]),
+            sr.stream_rank_sorted))
+        out["b2_both_launch_ms"] = ms(sr.stream_count_launcher(pass_u, pass_l)[0])
+    else:  # two launches, one a pass
+        out["b2_both_launch_ms"] = ms(lambda: (
+            sr.stream_rank_sorted(*pass_u, strict=False, reduce=True),
+            sr.stream_rank_sorted(*pass_l, strict=True, reduce=True)))
+    out["stream_passes_ms"] = ms(lambda: sr.stream_count_passes(*splan, **deltas))
+    for backend in ("merge", "stream"):  # warm queries, host clock, medians of 10
+        os.environ["SEQUILA_COUNT_BACKEND"] = backend
+        ts = []
+        for _ in range(11):
+            t0 = time.perf_counter()
+            if int(ctx.sql(bd.QUERY).column_np(0)[0]) != 99_159_827:
+                sys.exit(f"the warm {backend} count(*) differs")
+            ts.append(time.perf_counter() - t0)
+        out[f"{backend}_query_ms"] = float(np.median(ts[1:])) * 1e3
+    del os.environ["SEQUILA_COUNT_BACKEND"], pass_u, pass_l, u_a, u_q
+
+    rng = np.random.default_rng(4)
+    n, m = 1 << 20, 2_351_104
+    cols = [torch.from_numpy(a).cuda() for a in (
+        rng.integers(0, 24, n).astype(np.int32), rng.integers(0, 250_000_000, n).astype(np.int32),
+        rng.integers(0, 25, m).astype(np.int32), rng.integers(0, 250_000_000, m).astype(np.int32))]
+    a_k, a_v, _ = sr.sorted_padded(*cols[:2], n)
+    r_k, r_v, _ = sr.sorted_padded(*cols[2:], m)
+    r_a, r_q = composite(a_k, a_v), composite(r_k, r_v)
+    ranks = torch.empty(m, dtype=torch.int32, device=a_k.device)
+    if not torch.equal(rk.rank_sorted_resident(a_k, a_v, r_k, r_v, strict=True),
+                       torch.searchsorted(r_a, r_q, out_int32=True)):
+        sys.exit("B3's ranks differ from torch.searchsorted's")
+    out["b3_ms"] = ms(lambda: rk.rank_sorted_resident(a_k, a_v, r_k, r_v, strict=True))
+    out["b3_searchsorted_ms"] = ms(lambda: torch.searchsorted(r_a, r_q, out_int32=True, out=ranks))
+    if hasattr(sr, "stream_count_launcher"):
+        out["b3_launch_ms"] = ms(pm.segments_launcher(
+            pm._rank_plan(n, m, True, False, False, a_k.device), (a_k, a_v, r_k, r_v, ranks),
+            rk.rank_sorted_resident))
 
 
 def main() -> None:
