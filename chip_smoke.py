@@ -48,6 +48,16 @@ Phases, each of which exits non-zero when it fails:
    of the same function where there is one (torch.searchsorted), and the
    kernel's bound (the bytes it must move over 3.35 TB/s), beside the
    card's name and power limit;
+4f. the grouped count(*) ``SELECT b.contig, count(*) ... GROUP BY
+   b.contig`` over the genome pair (per-probe counts): on the merge route
+   (SEQUILA_HOST_THRESHOLD=0) 24 groups summing to 99,159,827, a warm query
+   launching B1 exactly once (both passes, ranks through the probe views'
+   orders) and pack_view twice; the 7,684,066 per-probe counts equal to the
+   native host index's and the level route's element by element; the host
+   route's groups equal; first and warm times of both routes; B1's
+   per-probe launch against its plain version on the same slots, timed as
+   a bare launch beside its bound and two torch.searchsorted calls with
+   their scatters;
 5a. the materializing ``SELECT *`` at the 15M-row pairing
    (``gen_chain_table(20_000, 13)`` x ``gen_chain_table(300_000, 14)``):
    the host route for reference, then the device route on the merge
@@ -78,6 +88,16 @@ Phases, each of which exits non-zero when it fails:
    100,000 and 1,000,000 probe rows on the host and device routes, each
    from a fresh session (first query and warm median), with equal
    checksums: the shapes where materialize_route_host's build term counts;
+5f. nearest ``SELECT *`` (CoitreesNearest) on the host route (the
+   default) and the device route (SEQUILA_HOST_THRESHOLD=0), each from a
+   fresh session, row for row equal: the genome build against
+   ``gen_genome_table(1_000_000, 23)`` (most probes overlap) and
+   ``gen_genome_table(100_000, 24)`` against the genome probes (most take
+   the upstream or downstream pick); the overlap, nearest and NULL picks
+   and each route's first and warm times;
+5g. the warm 15M host-route ``SELECT *`` in this process (allocator tuned
+   at import) and in a child with SEQUILA_MALLOC_TUNE=0, both printed;
+   nothing is asserted on speed;
 6. the q1 fixture through the port's CLI (host route), expecting 16.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -130,12 +150,29 @@ STREAM_BATCH = 1_000_000
 # phase 5e: probe tables (rows, seed) joined to the genome pair's build table
 ROUTE_PROBES = [(100_000, 23), (1_000_000, 23)]
 HOST_ROUTE = str(10**12)  # SEQUILA_HOST_THRESHOLD that keeps every join on the host
+# phase 4f: the grouped count(*) over the genome pair (per-probe counts)
+GROUPED_QUERY = (
+    "SELECT b.contig, count(*) FROM s1 a JOIN s2 b ON a.contig = b.contig "
+    "AND a.pos_end >= b.pos_start AND a.pos_start <= b.pos_end GROUP BY b.contig"
+)
+GENOME_CONTIGS = 24
+GROUPED_WARM_QUERIES = 3
+# phase 5f: nearest probe table (rows, seed) against the genome build, and
+# the sparse build table (rows, seed) against the genome probes
+NEAREST_PROBES = (1_000_000, 23)
+NEAREST_SPARSE = (100_000, 24)
+NEAREST_WARM_QUERIES = 2
+# phase 5g: warm 15M host-route SELECT * queries with and without the
+# allocator tuning
+MALLOC_WARM_QUERIES = 5
 STRATEGIES = ("runs", "bounds", "emit")
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "merge_rank_sorted": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:110"),
     # B1's level mode: every level's pair of Pallas launches in one
     "merge_level_ranks": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:615"),
     "pack_view": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:158"),
+    # B1's per-probe mode: merge_probe_count_passes' two Pallas launches in one
+    "merge_probe_ranks": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:229"),
     # B2 and B3: one merge path over (key, value) pairs
     "stream_rank_sorted": ("pair_merge.cu", "sequila_tpu/ops/pallas/stream_rank.py:86"),
     "rank_sorted_resident": ("pair_merge.cu", "sequila_tpu/ops/pallas/rank_kernel.py:126"),
@@ -542,13 +579,15 @@ def reset_launches():
     return lambda: {name: w.launches for name, w in wrappers.items()}
 
 
-def route_of(session) -> str:
-    """The count route the session's last query took (its route metric)."""
+def route_of(session, kind: str = "count") -> str:
+    """The route the session's last query took, from its route metric
+    ``<kind>_route_<name>`` (kind: count, emit, probe_count, nearest)."""
+    prefix = f"{kind}_route_"
     routes = [k for c in session.last_metrics.counters.values() for k in c
-              if k.startswith("count_route_")]
+              if k.startswith(prefix)]
     if len(routes) != 1:
-        fail(f"expected one count route metric, got {routes}")
-    return routes[0][len("count_route_"):]
+        fail(f"expected one {kind} route metric, got {routes}")
+    return routes[0][len(prefix):]
 
 
 def count(session, query: str) -> int:
@@ -891,6 +930,136 @@ def phase_times(torch, sessions, card, err, resident_cols):
     return kernel_ms, times
 
 
+def phase_grouped(torch, sessions, card, err):
+    print("== phase 4f: grouped count(*) over the genome pair (per-probe counts)", flush=True)
+    from sequila_tpu_torch.exec.context import ExecContext
+    from sequila_tpu_torch.ops.cuda import merge_count as mc
+    from sequila_tpu_torch.ops.host_join import make_host_index
+
+    name, ctx, expected, t1, t2 = sessions[1]
+
+    def grouped(route):
+        out, dt = timed_select(torch, ctx, GROUPED_QUERY)
+        if route_of(ctx, "probe_count") != route:
+            fail(f"grouped count: answered on route {route_of(ctx, 'probe_count')}, "
+                 f"expected {route}")
+        total = int(out.column_np(1).astype(np.int64).sum())
+        if total != expected or out.num_rows != GENOME_CONTIGS:
+            fail(f"grouped count on route {route}: {out.num_rows} groups summing to "
+                 f"{total}, expected {GENOME_CONTIGS} summing to {expected}")
+        return out, dt
+
+    def warm(route, *done):
+        ts = [*done, *(grouped(route)[1] for _ in range(GROUPED_WARM_QUERIES - len(done)))]
+        return float(np.median(ts)) * 1e3, min(ts) * 1e3
+
+    def probe_counts_ms():
+        """(per-probe counts, warm ms) of the join alone, outside the
+        grouping (the counts land on the host)."""
+        join.per_probe_counts(ectx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counts = join.per_probe_counts(ectx)
+        return counts, (time.perf_counter() - t0) * 1e3
+
+    os.environ["SEQUILA_HOST_THRESHOLD"] = "0"
+    launches = reset_launches()
+    merge_out, cold = grouped("merge")
+    torch.cuda.synchronize()
+    ran = launches()
+    if ran["merge_rank_sorted"] <= 0 or ran["pack_view"] <= 0:
+        fail(f"the grouped count's merge route launched {ran}")
+    launches = reset_launches()
+    _, warm1 = grouped("merge")
+    torch.cuda.synchronize()
+    one = launches()
+    if (one["merge_rank_sorted"], one["pack_view"]) != (1, 2):
+        fail(f"a warm grouped count launched {one}, expected B1 once and pack_view twice")
+    med, low = warm("merge", warm1)
+    join = interval_join_of(ctx.plan_sql(GROUPED_QUERY))
+    left, right = ctx.table("s1"), ctx.table("s2")
+    ectx = ExecContext(ctx.config)
+    got, probe_ms = probe_counts_ms()
+    print(f"{name} grouped count, merge route: {GENOME_CONTIGS} groups summing to {expected}; "
+          f"first query {cold * 1e3:.3f} ms (launches {ran}), warm B1 once and pack_view "
+          f"twice, warm median {med:.3f} ms over {GROUPED_WARM_QUERIES}, min {low:.3f} ms; "
+          f"the per-probe counts alone {probe_ms:.3f} ms [{card}]", flush=True)
+
+    # every per-probe count: merge route == the native host index == level
+    c1, c2 = joint_codes(t1, t2)
+    hidx = make_host_index(c1.astype(np.int32), t1["pos_start"].astype(np.int32),
+                           t1["pos_end"].astype(np.int32))
+    want = hidx.counts(c2.astype(np.int32), t2["pos_start"].astype(np.int32),
+                       t2["pos_end"].astype(np.int32))
+    level = join._level_probe_counts(ectx, left, right)
+    for label, counts in (("merge", got), ("level", level)):
+        if counts.shape != want.shape or not np.array_equal(counts, want):
+            bad = int((counts != want).sum()) if counts.shape == want.shape else "all"
+            fail(f"per-probe counts on the {label} route differ from the native host "
+                 f"index's in {bad} of {len(want)} rows")
+    print(f"{len(want)} per-probe counts: merge and level routes equal the native host "
+          "index's element by element")
+
+    os.environ["SEQUILA_HOST_THRESHOLD"] = HOST_ROUTE
+    host_out, host_cold = grouped("host")
+    if not host_out.arrow.equals(merge_out.arrow):
+        fail("the grouped count's host and merge routes differ")
+    med, low = warm("host")
+    probe_ms = probe_counts_ms()[1]
+    print(f"{name} grouped count, host route: the same groups; first query "
+          f"{host_cold * 1e3:.3f} ms, warm median {med:.3f} ms over {GROUPED_WARM_QUERIES}, "
+          f"min {low:.3f} ms; the per-probe counts alone {probe_ms:.3f} ms [{card}]",
+          flush=True)
+    os.environ["SEQUILA_HOST_THRESHOLD"] = "0"
+
+    # B1's per-probe launch against its plain version on the same slots,
+    # then timed as a bare launch beside its bound and the library calls
+    inputs = join._sorted_count_inputs(left, right)
+    plan = join._merge_probe_plan(left, right, *inputs)
+    segs = plan.segplan.segs
+    q_e = mc.pack_view(*plan.pqe, mc.BUILD_PAD)
+    q_s = mc.pack_view(*plan.pqs, mc.BUILD_PAD)
+    out = torch.full((2 * plan.n,), -1, dtype=torch.int32, device=q_e.device)
+    want_r = out.clone()
+    launch = mc.segments_launcher(plan.segplan, (q_e, q_s, out))
+    launch()
+    mc.merge_rank_segments_plain(segs, (q_e, q_s, want_r))
+    d = max_diff(torch, out, want_r)
+    err["merge_probe_ranks"] = d
+    if d:
+        fail(f"B1's per-probe launch: max |diff| {d} against its plain version")
+    if not np.array_equal((out[:plan.n] - out[plan.n:]).cpu().numpy(), want):
+        fail("B1's per-probe ranks do not give the native host index's counts")
+    print(f"B1's per-probe launch (2 segments, tables of {segs[0].n} rows packed on load, "
+          f"{segs[0].m} queries each, ranks through the orders): equal to plain", flush=True)
+    # the library yardstick: two torch.searchsorted calls on the same packed
+    # values widened to int64 (u32 order), two scatters, one subtraction;
+    # the tables are packed outside the timed window
+    tabs = [mc.as_u32(mc.pack_view_plain(*s.raw)) for s in segs]
+    qrys = [mc.as_u32(q_e), mc.as_u32(q_s)]
+    lib = torch.empty((2, plan.n), dtype=torch.int32, device=q_e.device)
+
+    def library():
+        for i, s in enumerate(segs):
+            ranks = torch.searchsorted(tabs[i], qrys[i], right=not s.strict, out_int32=True)
+            lib[i].index_copy_(0, s.ord, ranks[:plan.n])
+        return lib[0] - lib[1]
+
+    if not torch.equal(library(), out[:plan.n] - out[plan.n:]):
+        fail("the library calls differ from B1's per-probe ranks")
+    probe_bytes = (nbytes(q_e, q_s, out) + sum(nbytes(*s.raw[:3], s.ord) for s in segs))
+    kernel_ms = time_kernel(
+        torch, "merge_probe_ranks (B1's per-probe launch)",
+        lambda: mc.merge_rank_segments_plain(segs, (q_e, q_s, out)), launch, library,
+        probe_bytes, sum(s.n + s.m for s in segs),
+        f"2 segments, N={segs[0].n} M={segs[0].m}, ranks through the orders", card)
+    whole = time_events(torch, lambda: mc.merge_probe_count_passes(plan), TIMED_LAUNCHES)
+    print(f"merge_probe_count_passes whole (2 pack_view and 1 B1 launch, the subtraction): "
+          f"{whole:.4f} ms [{card}]", flush=True)
+    del tabs, qrys, lib, out, want_r
+    return ran, kernel_ms
+
+
 def checksum(batches) -> tuple[int, int]:
     """(rows, order-independent checksum) of join output batches: a
     uint64 wrap-around sum over rows of a mix of the four bound columns
@@ -912,15 +1081,6 @@ def checksum(batches) -> tuple[int, int]:
         h ^= h >> np.uint64(31)
         acc += np.sum(h * keys[0], dtype=np.uint64)
     return rows, int(acc)
-
-
-def emit_route(session) -> str:
-    """The emission route the session's last query took (its route metric)."""
-    routes = [k for c in session.last_metrics.counters.values() for k in c
-              if k.startswith("emit_route_")]
-    if len(routes) != 1:
-        fail(f"expected one emission route metric, got {routes}")
-    return routes[0][len("emit_route_"):]
 
 
 def interval_join_of(plan):
@@ -974,8 +1134,8 @@ def phase_materialize(torch, card):
 
     def select(label, route, query=SELECT_STAR, warm=0):
         out, cold = timed_select(torch, ctx, query)
-        if emit_route(ctx) != route:
-            fail(f"{label}: answered on route {emit_route(ctx)}, expected {route}")
+        if route_of(ctx, "emit") != route:
+            fail(f"{label}: answered on route {route_of(ctx, 'emit')}, expected {route}")
         ts = [timed_select(torch, ctx, query)[1] for _ in range(warm)]
         line = f"{label}: {out.num_rows} rows on route {route}, first query {cold:.3f} s"
         if ts:
@@ -1234,8 +1394,8 @@ def phase_routing(torch, sessions, card):
             ctx.register_table("s1", pa.table(t1))
             ctx.register_table("s2", pa.table(t2))
             out, cold = timed_select(torch, ctx, SELECT_STAR)
-            if emit_route(ctx) != route:
-                fail(f"{n} x {m}: answered on route {emit_route(ctx)}, expected {route}")
+            if route_of(ctx, "emit") != route:
+                fail(f"{n} x {m}: answered on route {route_of(ctx, 'emit')}, expected {route}")
             warm = float(np.median([timed_select(torch, ctx, SELECT_STAR)[1]
                                     for _ in range(MAT_WARM_QUERIES)]))
             got[route] = checksum([out])
@@ -1247,6 +1407,124 @@ def phase_routing(torch, sessions, card):
             fail(f"{n} x {m}: device (rows, checksum) {got['merge']} != host {got['host']}")
         print(f"{n} x {m}: checksums equal; materialize_route_host picks the "
               f"{default_route(n, m)} route by default")
+
+
+def nearest_picks(out) -> tuple[int, int, int]:
+    """(overlap, nearest, NULL) picks of a nearest SELECT * output (build
+    bounds at positions 1, 2, probe bounds at 4, 5)."""
+    a_s = out.arrow.column(1)
+    null = a_s.null_count
+    a_s, a_e, b_s, b_e = (
+        out.arrow.column(i).fill_null(0).to_numpy().astype(np.int64) for i in (1, 2, 4, 5)
+    )
+    valid = ~np.asarray(out.arrow.column(1).is_null())
+    overlap = int((valid & (a_s <= b_e) & (a_e >= b_s)).sum())
+    return overlap, int(valid.sum()) - overlap, null
+
+
+def phase_nearest(torch, sessions, card):
+    print("== phase 5f: nearest SELECT * (CoitreesNearest) on the host and device routes",
+          flush=True)
+    import pyarrow as pa
+
+    from sequila_tpu_torch import bench_data as bd
+    from sequila_tpu_torch.native.loader import available
+    from sequila_tpu_torch.session import SessionContext
+
+    if not available():
+        fail("the native host library did not build: nearest has no host route")
+    t1, t2 = sessions[1][3], sessions[1][4]
+    cases = [
+        (f"genome build x gen_genome_table{NEAREST_PROBES}", t1,
+         bd.gen_genome_table(*NEAREST_PROBES)),
+        (f"gen_genome_table{NEAREST_SPARSE} x genome probes",
+         bd.gen_genome_table(*NEAREST_SPARSE), t2),
+    ]
+    for label, build, probe in cases:
+        outs = {}
+        for route, thr in (("host", None), ("device", "0")):
+            # the default routing, then SEQUILA_HOST_THRESHOLD=0; a fresh
+            # session: the first query pays the route's own index build
+            os.environ.pop("SEQUILA_HOST_THRESHOLD", None)
+            if thr is not None:
+                os.environ["SEQUILA_HOST_THRESHOLD"] = thr
+            ctx = SessionContext(device="cuda")
+            ctx.register_table("s1", pa.table(build))
+            ctx.register_table("s2", pa.table(probe))
+            ctx.sql("SET sequila.interval_join_algorithm TO CoitreesNearest")
+            out, cold = timed_select(torch, ctx, SELECT_STAR)
+            if route_of(ctx, "nearest") != route:
+                fail(f"nearest {label}: answered on route {route_of(ctx, 'nearest')}, "
+                     f"expected {route}")
+            warm = float(np.median([timed_select(torch, ctx, SELECT_STAR)[1]
+                                    for _ in range(NEAREST_WARM_QUERIES)]))
+            print(f"nearest {label}, route {route}: {out.num_rows} rows, first query "
+                  f"{cold * 1e3:.3f} ms, warm median {warm * 1e3:.3f} ms over "
+                  f"{NEAREST_WARM_QUERIES} [{card}]", flush=True)
+            outs[route] = out
+            del ctx
+        m = len(probe["contig"])
+        if outs["host"].num_rows != m or not outs["device"].arrow.equals(outs["host"].arrow):
+            fail(f"nearest {label}: the device route's rows differ from the host route's")
+        overlap, near, null = nearest_picks(outs["host"])
+        print(f"nearest {label}: device equals host row for row; {overlap} overlap, "
+              f"{near} nearest and {null} NULL picks of {m} probes", flush=True)
+        del outs
+    os.environ.pop("SEQUILA_HOST_THRESHOLD", None)
+
+
+def malloc_warm_ms() -> dict:
+    """The warm 15M host-route SELECT * in this process: median ms over
+    MALLOC_WARM_QUERIES after one query, and whether the allocator tuning
+    was applied."""
+    import pyarrow as pa
+
+    from sequila_tpu_torch import _malloc
+    from sequila_tpu_torch import bench_data as bd
+    from sequila_tpu_torch.session import SessionContext
+
+    (n, seed_l), (m, seed_r) = MAT_PAIR
+    os.environ["SEQUILA_HOST_THRESHOLD"] = HOST_ROUTE
+    ctx = SessionContext(device="cuda")
+    ctx.register_table("s1", pa.table(bd.gen_chain_table(n, seed_l)))
+    ctx.register_table("s2", pa.table(bd.gen_chain_table(m, seed_r)))
+    rows = ctx.sql(SELECT_STAR).num_rows
+    ts = []
+    for _ in range(MALLOC_WARM_QUERIES):
+        t0 = time.perf_counter()
+        ctx.sql(SELECT_STAR)
+        ts.append(time.perf_counter() - t0)
+    return {"rows": rows, "ms": float(np.median(ts)) * 1e3, "min_ms": min(ts) * 1e3,
+            "tuned": _malloc._applied}
+
+
+def malloc_child() -> None:
+    """Phase 5g's child process (SEQUILA_MALLOC_TUNE=0): one JSON line."""
+    print(json.dumps(malloc_warm_ms()))
+
+
+def phase_malloc(card):
+    print("== phase 5g: the warm 15M host-route SELECT * with and without the allocator "
+          "tuning", flush=True)
+    tuned = malloc_warm_ms()
+    res = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.malloc_child()"],
+        env=dict(os.environ, SEQUILA_MALLOC_TUNE="0"),
+        capture_output=True, text=True, timeout=600,
+    )
+    if res.returncode != 0:
+        fail(f"the untuned child exited {res.returncode}: {res.stderr.strip()[-2000:]}")
+    untuned = json.loads(res.stdout.strip().splitlines()[-1])
+    if not tuned["tuned"] or untuned["tuned"]:
+        fail(f"allocator tuning: parent {tuned['tuned']}, SEQUILA_MALLOC_TUNE=0 child "
+             f"{untuned['tuned']}")
+    if untuned["rows"] != tuned["rows"]:
+        fail(f"the untuned child returned {untuned['rows']} rows, the parent {tuned['rows']}")
+    for label, r in (("tuned (this process)", tuned), ("SEQUILA_MALLOC_TUNE=0 (child)", untuned)):
+        print(f"warm 15M host SELECT *, {label}: median {r['ms']:.3f} ms, min "
+              f"{r['min_ms']:.3f} ms over {MALLOC_WARM_QUERIES} ({r['rows']} rows) [{card}]",
+              flush=True)
+    os.environ.pop("SEQUILA_HOST_THRESHOLD", None)
 
 
 def stream_pass(ctx, query, check):
@@ -1279,8 +1557,8 @@ def phase_stream(sessions, card):
     for route, thr in (("merge", "0"), ("host", HOST_ROUTE)):
         os.environ["SEQUILA_HOST_THRESHOLD"] = thr
         rows, acc, biggest, dt = stream_pass(ctx, SELECT_STAR, check=True)
-        if emit_route(ctx) != route:
-            fail(f"{name} sql_batches: answered on route {emit_route(ctx)}, expected {route}")
+        if route_of(ctx, "emit") != route:
+            fail(f"{name} sql_batches: answered on route {route_of(ctx, 'emit')}, expected {route}")
         if rows != expected:
             fail(f"{name} sql_batches on route {route}: {rows} rows, expected {expected}")
         sums[route] = acc
@@ -1307,8 +1585,8 @@ def phase_copy(mat_ctx, expected, ref):
         wrote = int(mat_ctx.sql(
             f"COPY ({SELECT_STAR}) TO '{out_dir}/' STORED AS PARQUET").column_np(0)[0])
         dt = time.perf_counter() - t0
-        if emit_route(mat_ctx) != "merge":
-            fail(f"COPY answered on route {emit_route(mat_ctx)}")
+        if route_of(mat_ctx, "emit") != "merge":
+            fail(f"COPY answered on route {route_of(mat_ctx, 'emit')}")
         back = checksum([pq.read_table(out_dir)])
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
@@ -1354,12 +1632,15 @@ def main() -> None:
     phase_level(torch, sessions, card)
     resident_launches, resident_cols = phase_resident(torch, dev)
     kernel_ms, _ = phase_times(torch, sessions, card, err, resident_cols)
+    probe_launches, kernel_ms["merge_probe_ranks"] = phase_grouped(torch, sessions, card, err)
     mat_ctx, mat_expected, mat_ref, mat_launches = phase_materialize(torch, card)
     kernel_ms["merge_level_ranks"] = phase_emission_parts(torch, mat_ctx, card, err)
     phase_stream(sessions, card)
     phase_copy(mat_ctx, mat_expected, mat_ref)
     phase_stages(torch, mat_ctx, card)
     phase_routing(torch, sessions, card)
+    phase_nearest(torch, sessions, card)
+    phase_malloc(card)
     os.environ.pop("SEQUILA_HOST_THRESHOLD", None)
     phase_q1()
     if "jax" in sys.modules:
@@ -1367,11 +1648,12 @@ def main() -> None:
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches come from the run of its own path: B1 and
     # pack_view from the merge count(*) route, B1's level mode from the
-    # device merge SELECT *, B2 from the stream route, B3 from
-    # rank_lex_resident
+    # device merge SELECT *, B1's per-probe mode from the merge route's
+    # grouped count, B2 from the stream route, B3 from rank_lex_resident
     launches = {
         "merge_rank_sorted": merge_launches["merge_rank_sorted"],
         "merge_level_ranks": mat_launches["merge_rank_sorted"],
+        "merge_probe_ranks": probe_launches["merge_rank_sorted"],
         "pack_view": merge_launches["pack_view"],
         "stream_rank_sorted": stream_launches["stream_rank_sorted"],
         "rank_sorted_resident": resident_launches["rank_sorted_resident"],

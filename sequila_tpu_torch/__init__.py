@@ -5,11 +5,18 @@ never imports).  The device-free layers (SQL parser, binder, planner,
 host operators, the native C++ host index) are copies of the reference's;
 the device work runs as torch tensors on the device the session names,
 with hand-written CUDA kernels for Hopper (``csrc/``) where the reference
-used Pallas.  This slice ports the SQL count(*) interval-join path; see
-ROADMAP.md for the slices still to come.
+used Pallas.  The port covers the SQL interval join (count(*), grouped
+count(*), SELECT * and its streamed forms, nearest); see ROADMAP.md for the
+slices still to come.
+
+Importing the package tunes glibc's allocator as the reference does
+(``_malloc.tune_malloc``; SEQUILA_MALLOC_TUNE=0 turns it off).
 """
 
+from sequila_tpu_torch._malloc import tune_malloc
 from sequila_tpu_torch.config import Algorithm, SequilaConfig
+
+tune_malloc()
 
 __version__ = "0.1.0"
 

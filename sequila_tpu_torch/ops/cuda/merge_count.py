@@ -14,7 +14,9 @@ sorted sequence inside another:
   ``merge_rank_segments`` ranks sorted queries inside sorted tables, any
   number of independent segments in one merge-path launch — both
   hand-written CUDA kernels (csrc/merge_rank.cu).  A count(*) is one
-  launch for both passes (``merge_count_passes``).
+  launch for both passes (``merge_count_passes``), and so are per-probe
+  counts (``merge_probe_count_passes``: the probe views ranked in the
+  build views, the ranks written through the views' orders).
 
 Count identity (BITS, Layer & Quinlan 2012):
 
@@ -502,6 +504,65 @@ def merge_count_passes(
     plan = _count_plan(a1.numel(), q1.numel(), a2.numel(), q2.numel(), q1.device)
     merge_rank_segments(plan, (a1, q1, a2, q2, totals))
     return totals[0] - totals[1]
+
+
+class ProbeCountPlan(NamedTuple):
+    segplan: SegmentPlan
+    pqe: tuple  # (k, v, c_tab) of the probe view sorted by (k, qe)
+    pqs: tuple  # (k, v, c_tab) of the probe view sorted by (k, qs)
+    n: int  # the probe's real rows
+
+
+def plan_probe_counts(
+    pqe_k, pqe_v, c_qe,  # probe sorted by (k, qe):    queries of pass A
+    bst_k, bst_v, c_bs,  # build sorted by (k, start): table of pass A
+    pqs_k, pqs_v, c_qs,  # probe sorted by (k, qs):    queries of pass B
+    ben_k, ben_v, c_be,  # build sorted by (k, end):   table of pass B
+    ord_qe, ord_qs,      # int64 orders of the probe views' real rows
+) -> ProbeCountPlan:
+    """Plan of merge_probe_count_passes: the two segments of one B1 launch.
+
+    The count(*) passes rank *build* tuples in the sorted probe views; the
+    per-probe direction ranks *probe* tuples in the sorted build views with
+    the SAME four packings (plan_packing), so the build views are the
+    tables, packed on load with PROBE_PAD, and the probe views the queries,
+    packed by pack_view with BUILD_PAD.  Pass A (non-strict) ranks each
+    probe end among the build starts, pass B (strict) each probe start
+    among the build ends; each writes the ranks of the view's real rows
+    (they lead, PAD slots trail) to probe row order through its order.
+    Build PAD rows pack to PROBE_PAD, above every real query, and count in
+    neither pass.  Port of the device half of
+    sequila_tpu/ops/pallas/merge_count.py:196::merge_probe_count_passes;
+    its host chunk windows and padded orders are TPU workarounds the
+    merge path does not need."""
+    n = ord_qe.numel()
+    if ord_qs.numel() != n:
+        raise ValueError(f"orders of {n} and {ord_qs.numel()} rows")
+    segs = (
+        Segment(bst_k.numel(), pqe_k.numel(), q=(0, 0), strict=False,
+                raw=(bst_k, bst_v, c_bs, PROBE_PAD), out=(2, 0), ord=ord_qe, n_real=n),
+        Segment(ben_k.numel(), pqs_k.numel(), q=(1, 0), strict=True,
+                raw=(ben_k, ben_v, c_be, PROBE_PAD), out=(2, n), ord=ord_qs, n_real=n),
+    )
+    return ProbeCountPlan(plan_segments(segs, ord_qe.device),
+                          (pqe_k, pqe_v, c_qe), (pqs_k, pqs_v, c_qs), n)
+
+
+def merge_probe_count_passes(plan: ProbeCountPlan) -> torch.Tensor:
+    """Per-probe BITS counts (CountOverlaps) in probe row order, int32:
+
+        count_q = #{b: start_b <= qe_q} - #{b: end_b < qs_q}
+
+    Build rows of smaller joint keys land in both terms (their packed start
+    AND end sit in lower u32 segments) and cancel; larger keys land in
+    neither; same-key rows reduce to exact BITS.  Two pack_view launches
+    for the probe views, one B1 launch for both passes (ranks through the
+    orders), one subtraction."""
+    q_e = pack_view(*plan.pqe, BUILD_PAD)
+    q_s = pack_view(*plan.pqs, BUILD_PAD)
+    ranks = torch.empty((2, plan.n), dtype=torch.int32, device=q_e.device)
+    merge_rank_segments(plan.segplan, (q_e, q_s, ranks.view(-1)))
+    return ranks[0] - ranks[1]
 
 
 def count_segments(n1: int, m1: int, n2: int, m2: int) -> tuple:

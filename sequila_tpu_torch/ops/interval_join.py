@@ -1,5 +1,5 @@
-"""Interval-join counts and pair emission over the level index (port of
-sequila_tpu/ops/interval_join.py, nearest aside).
+"""Interval-join counts, pair emission and nearest over the level index
+(port of sequila_tpu/ops/interval_join.py).
 
 1. ``overlap_bounds`` — for every probe row and every index level, the
    contiguous match run ``[lb, ub)`` via two level-local lexicographic
@@ -15,6 +15,10 @@ sequila_tpu/ops/interval_join.py, nearest aside).
    level-minor, with one of three representations crossing to the host
    (compacted runs, whole bounds, or emitted rows); Lapper's window
    strategy emits from candidate windows of the (key, start)-sorted view.
+5. ``nearest_match`` / ``nearest_from_bounds`` — one build row a probe
+   row (CoitreesNearest): the first overlap, else the nearer of the
+   upstream and downstream neighbours, else -1, read off the per-level
+   bounds with canonical tie-breaking.
 
 These were XLA programs in the JAX package, not Pallas kernels, and are
 plain torch ops here.  Two strategies of the JAX package become:
@@ -40,6 +44,7 @@ from sequila_tpu_torch.ops.interval_index import IntervalIndex
 from sequila_tpu_torch.ops.ranks import composite, rank_lex_sort
 
 INT32_MIN = -(2**31)
+INT32_MAX = 2**31 - 1
 
 # Materialization guard: one probe chunk may not emit >= 2^31 pairs (int32
 # row indices).  Module constant so regression tests can lower it.
@@ -531,3 +536,109 @@ def materialize_pairs_from_bounds(index: IntervalIndex, lb, ub):
         num_levels=index.num_levels, level_offsets=index.level_offsets,
     )
     return build_rows.cpu().numpy(), _probe_ids(counts, total), total
+
+
+# ---------------------------------------------------------------------------
+# Nearest (CoitreesNearest semantics)
+# ---------------------------------------------------------------------------
+
+
+def _lexmin3(mask, a, b, c):
+    """Masked lexicographic (a, b, c) minimum over axis 0.
+
+    Returns (m_a, m_c): the winning a-value and the winner's c-value (the
+    row payload).  Empty columns yield (INT32_MAX, INT32_MAX)."""
+    m_a = torch.where(mask, a, INT32_MAX).amin(0)
+    m2 = mask & (a == m_a)
+    m_b = torch.where(m2, b, INT32_MAX).amin(0)
+    m3 = m2 & (b == m_b)
+    return m_a, torch.where(m3, c, INT32_MAX).amin(0)
+
+
+def _lexmax3(mask, a, b, c):
+    """Masked lexicographic (a, b, c) maximum over axis 0 (see _lexmin3);
+    empty columns yield (INT32_MIN, INT32_MIN)."""
+    m_a = torch.where(mask, a, INT32_MIN).amax(0)
+    m2 = mask & (a == m_a)
+    m_b = torch.where(m2, b, INT32_MIN).amax(0)
+    m3 = m2 & (b == m_b)
+    return m_a, torch.where(m3, c, INT32_MIN).amax(0)
+
+
+def _distance(any_cand, raw):
+    """The JAX package's int32 distance: its subtraction wraps, and a
+    wrapped (non-positive) distance becomes INT32_MAX, which makes it
+    min(true distance, INT32_MAX).  ``raw`` is the true int64 distance,
+    positive wherever ``any_cand`` holds."""
+    return torch.where(any_cand, raw.clamp(max=INT32_MAX), INT32_MAX)
+
+
+def nearest_from_bounds(lb, ub, levels, keys, starts, ends, pos, qk, qs, qe, *,
+                        level_offsets, level_pad):
+    """One build row per probe row: first overlap, else true nearest, else -1.
+
+    Distance convention of the reference (interval_join.rs:909-956):
+    ``candidate.start - qe`` downstream, ``qs - candidate.end`` upstream;
+    ties prefer the upstream candidate.  Tie-breaking is canonical, shared
+    with the host indexes:
+
+    - overlap pick: the overlapping row minimizing (start, end, row)
+    - upstream tie (equal max end < qs): maximize (end, start, row)
+    - downstream tie (equal min start > qe): minimize (start, end, row)
+
+    Within a level (start-sorted, monotone ends) the run boundary entry is
+    the level's lexicographic extreme, so a masked min or max over the
+    level axis gives the global pick.  Distances saturate at INT32_MAX as
+    in the JAX package (see _distance), so two candidates both at least
+    2^31 - 1 away tie and the upstream one wins; where only a downstream
+    candidate that far exists, the upstream payload INT32_MIN wins the tie
+    and the row reads as no match, also as in the JAX package.  Port of
+    sequila_tpu/ops/interval_join.py:654 (an XLA program, not Pallas):
+    gathers over the level view and masked reductions, plain torch ops."""
+    L, m = lb.shape
+    dev = lb.device
+    offs = torch.tensor(level_offsets, dtype=torch.int64, device=dev)[:, None]
+    pads = torch.tensor(level_pad, dtype=torch.int64, device=dev)[:, None]
+    lvl_ids = torch.arange(L, dtype=torch.int32, device=dev)[:, None]
+    last = pos.numel() - 1
+    lb64, ub64 = lb.to(torch.int64), ub.to(torch.int64)
+    counts = (ub - lb).clamp(min=0)
+    ov_ok = counts > 0
+
+    # overlap pick: each level's first overlapping entry (at lb) is the
+    # level's (start, end, row) minimum
+    g = (offs + lb64).clamp(0, last)
+    _, overlap_pos = _lexmin3(ov_ok, starts[g], ends[g], pos[g])
+
+    # upstream: the last entry of the level's key run with end < qs is the
+    # level's (end, start, row) maximum among upstream entries
+    g = (offs + lb64 - 1).clamp(0, last)
+    left_ok = (lb > 0) & (keys[g] == qk) & (levels[g] == lvl_ids)
+    left_end, left_pos = _lexmax3(left_ok, ends[g], starts[g], pos[g])
+    left_any = left_ok.any(0)
+    left_dist = _distance(left_any, qs.to(torch.int64) - left_end)
+
+    # downstream: the first entry with start > qe is the level's (start,
+    # end, row) minimum among downstream entries.  ub equals the level's
+    # padded size when the level is bucket-full; the read would land on
+    # the next level, so the pad mask drops it
+    g = (offs + ub64).clamp(0, last)
+    right_ok = (ub64 < pads) & (keys[g] == qk) & (levels[g] == lvl_ids)
+    right_start, right_pos = _lexmin3(right_ok, starts[g], ends[g], pos[g])
+    right_any = right_ok.any(0)
+    right_dist = _distance(right_any, right_start.to(torch.int64) - qe)
+
+    best_pos = torch.where(left_dist <= right_dist, left_pos, right_pos)
+    return torch.where(
+        ov_ok.any(0), overlap_pos, torch.where(left_any | right_any, best_pos, -1)
+    ).to(torch.int32)
+
+
+def nearest_match(index: IntervalIndex, qk, qs, qe, method: str = "sort"):
+    """Nearest build row (or -1) of each probe row: ``overlap_bounds`` by
+    the algorithm's rank strategy, then ``nearest_from_bounds``."""
+    lb, ub = overlap_bounds(index, qk, qs, qe, method)
+    return nearest_from_bounds(
+        lb, ub, index.levels, index.keys, index.starts, index.ends, index.pos,
+        qk, qs, qe, level_offsets=index.level_offsets, level_pad=index.level_pad,
+    )

@@ -5,9 +5,9 @@ tests/test_merge_count.py (planner ±1 deltas, negative coordinates,
 missing keys, dense ties, probe larger and smaller than build), on the
 same arrow tables; counts compare exactly.  Shapes the merge plan declines
 take the co-sort and level routes in both packages and compare exactly;
-materialization and streaming above the threshold match the JAX package,
-and the routes not ported yet raise NotImplementedError naming their
-ROADMAP.md item instead of rerouting.
+materialization, streaming, per-probe counts and nearest match the JAX
+package, and Partitioned mode, not ported yet, raises NotImplementedError
+naming its ROADMAP.md item instead of rerouting.
 """
 
 import numpy as np
@@ -211,8 +211,9 @@ def _rows(t):
 
 class TestOffSliceRoutesRaise:
     """Routes off the ported slices raise NotImplementedError naming their
-    ROADMAP.md item; materialization (A3) and streaming (A4) are ported
-    and now match the JAX package (the class keeps its name)."""
+    ROADMAP.md item (Partitioned mode, A9); materialization (A3),
+    streaming (A4), per-probe counts and nearest (A6) are ported and now
+    match the JAX package (the class keeps its name)."""
 
     def test_materialize_above_threshold(self, rng, monkeypatch):
         monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "0")
@@ -235,10 +236,19 @@ class TestOffSliceRoutesRaise:
             r for b in want for r in _rows(b)
         )
 
-    def test_per_probe_counts(self, rng):
-        tjoin, _, _ = _join("torch", *_tables(rng, 100, 100))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-            tjoin.per_probe_counts(TorchCtx(TorchConfig()))
+    def test_per_probe_counts(self, rng, monkeypatch):
+        """Per-probe counts (A6) are ported: equal to the JAX package's on
+        the merge route (threshold 0) and the host route."""
+        lt, rt = _tables(rng, 100, 100)
+        for threshold in ("0", "65536"):
+            monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", threshold)
+            jjoin, _, _ = _join("jax", lt, rt)
+            tjoin, _, _ = _join("torch", lt, rt)
+            got = tjoin.per_probe_counts(TorchCtx(TorchConfig()))
+            want = np.asarray(jjoin.per_probe_counts(JaxCtx(SequilaConfig())))
+            assert got.dtype == want.dtype == np.int32
+            np.testing.assert_array_equal(got, want)
+            assert want.sum() > 0
 
     def test_partitioned_mode(self, rng):
         tjoin, _, _ = _join("torch", *_tables(rng, 100, 100), mode="Partitioned")
@@ -247,15 +257,21 @@ class TestOffSliceRoutesRaise:
             with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
                 run(TorchCtx(TorchConfig()))
 
-    def test_nearest(self, rng):
-        lt, rt = _tables(rng, 100, 100)
-        tjoin, _, _ = _join("torch", lt, rt)
-        tjoin.algorithm = Algorithm.COITREES_NEAREST
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-            tjoin.execute(TorchCtx(TorchConfig()))
-        # streamed nearest falls back to one batch, which raises the same
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-            next(tjoin.execute_batches(TorchCtx(TorchConfig())))
+    def test_nearest(self, rng, monkeypatch):
+        """The nearest join (A6) is ported: one row a probe row, equal to
+        the JAX package's on the device (threshold 0) and host routes;
+        streamed nearest is one batch of the same rows."""
+        lt, rt = _tables(rng, 100, 100, lkeys=4, rkeys=6)
+        for threshold in ("0", "65536"):
+            monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", threshold)
+            jjoin, _, _ = _join("jax", lt, rt, alg="COITREES_NEAREST")
+            tjoin, _, _ = _join("torch", lt, rt, alg="COITREES_NEAREST")
+            got = tjoin.execute(TorchCtx(TorchConfig()))
+            want = jjoin.execute(JaxCtx(SequilaConfig()))
+            assert got.num_rows == rt.num_rows and _rows(got) == _rows(want)
+            assert any(r[0] is None for r in _rows(got))  # keys absent from the build
+            batches = list(tjoin.execute_batches(TorchCtx(TorchConfig())))
+            assert len(batches) == 1 and _rows(batches[0]) == _rows(want)
 
     def test_host_materialize_matches_jax(self, rng):
         """Below the threshold a materializing inner join runs on the host

@@ -1,0 +1,309 @@
+"""Port parity: per-probe counts (CountOverlaps, the grouped count(*)).
+
+IntervalJoinExec.per_probe_counts of sequila_tpu_torch (``device="cpu"``,
+the kernels' plain versions) against the JAX package's on the same arrow
+tables, route by route, exactly: the host index at the default threshold,
+the merge backend's per-probe passes (B1 through the views' orders) with
+SEQUILA_HOST_THRESHOLD=0, and the level loop for every shape the merge
+plan declines.  merge_probe_count_passes against the JAX one on the same
+sorted views; the grouped count(*) through SQL against the JAX session.
+The ``cuda`` test holds a warm device per-probe count to one B1 launch.
+"""
+
+import numpy as np
+import pyarrow as pa
+import pytest
+import torch
+
+from sequila_tpu.config import SequilaConfig
+from sequila_tpu.exec.context import ExecContext as JaxCtx
+from sequila_tpu.ops.pallas import merge_count as jmc
+from sequila_tpu.planner import expr as jexpr
+from sequila_tpu.planner import intervals as jiv
+from sequila_tpu_torch.config import SequilaConfig as TorchConfig
+from sequila_tpu_torch.exec.context import ExecContext as TorchCtx
+from sequila_tpu_torch.ops.cuda import merge_count as tmc
+from sequila_tpu_torch.planner import expr as texpr
+from sequila_tpu_torch.planner import intervals as tiv
+from test_torch_interval_count import (
+    _degenerate_probe,
+    _dup,
+    _inverted_build,
+    _join,
+    _tables,
+    _wide,
+)
+
+
+def _route(ctx, op) -> str:
+    routes = [k for k in ctx.metrics.counters[op] if k.startswith("probe_count_route_")]
+    assert len(routes) == 1, routes
+    return routes[0][len("probe_count_route_"):]
+
+
+def _with(pkg, join, lt, rt, keys=None, q_start=None):
+    """``join`` re-keyed on the columns ``keys`` and/or with the probe
+    start bound replaced by ``q_start(expr module, start column)``."""
+    ex, iv = (jexpr, jiv) if pkg == "jax" else (texpr, tiv)
+    if keys is not None:
+        join.on = [
+            (ex.Column(k, lt.schema.get_field_index(k)), ex.Column(k, rt.schema.get_field_index(k)))
+            for k in keys
+        ]
+    if q_start is not None:
+        r = join.intervals.right_interval
+        join.intervals = iv.ColIntervals(
+            join.intervals.left_interval, iv.ColInterval(q_start(ex, r.start), r.end)
+        )
+    return join
+
+
+def _probe_counts(lt, rt, deltas=(0, 0, 0, 0), **kw):
+    """(port counts, JAX counts, the port's route) of per_probe_counts on
+    one table pair; the caller sets SEQUILA_HOST_THRESHOLD and the
+    backend."""
+    jjoin, _, _ = _join("jax", lt, rt, deltas)
+    tjoin, _, _ = _join("torch", lt, rt, deltas)
+    jjoin, tjoin = (_with(p, j, lt, rt, **kw) for p, j in (("jax", jjoin), ("torch", tjoin)))
+    ctx = TorchCtx(TorchConfig())
+    got, table = tjoin.per_probe_counts(ctx, with_table=True)
+    assert table.num_rows == rt.num_rows
+    assert got.dtype == np.int32 and got.shape == (rt.num_rows,)
+    want = np.asarray(jjoin.per_probe_counts(JaxCtx(SequilaConfig())))
+    return got, want, _route(ctx, tjoin.op_id())
+
+
+def _null_keys(rng):
+    lt, rt = _tables(rng, 300, 400)
+    keys = rt.column("contig").to_pylist()
+    keys[::7] = [None] * len(keys[::7])
+    return lt, rt.set_column(0, "contig", pa.array(keys))
+
+
+def _mixed_key_types(rng):
+    lt, rt = _tables(rng, 300, 400)
+    lk = rng.integers(0, 5, lt.num_rows).astype(np.int32)
+    rk = rng.integers(0, 6, rt.num_rows).astype(np.int64)
+    return lt.set_column(0, "contig", pa.array(lk)), rt.set_column(0, "contig", pa.array(rk))
+
+
+DECLINED = {  # shapes the merge plan declines: (tables, join edits)
+    "span": lambda rng: ((_wide(500, 1), _wide(700, 2)), {}),
+    "degenerate": lambda rng: (_degenerate_probe(rng), {}),
+    "inverted": lambda rng: (_inverted_build(rng), {}),
+    "null_keys": lambda rng: (_null_keys(rng), {}),
+    "mixed_key_types": lambda rng: (_mixed_key_types(rng), {}),
+    "computed_bound": lambda rng: (
+        _tables(rng, 300, 400),
+        {"q_start": lambda ex, s: ex.BinaryExpr(s, "*", ex.Literal(1))},
+    ),
+}
+
+
+class TestRoutes:
+    def test_host_route(self, rng):
+        got, want, route = _probe_counts(*_tables(rng, 300, 400))
+        assert route == "host"
+        np.testing.assert_array_equal(got, want)
+        assert want.sum() > 0
+
+    @pytest.mark.parametrize("deltas", [(0, 0, 0, 0), (0, -1, 0, -1), (1, 0, 0, -1)])
+    def test_merge_route_deltas(self, rng, monkeypatch, deltas):
+        lt, rt = _tables(rng, 400, 600)
+        host, _, _ = _probe_counts(lt, rt, deltas)
+        monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "0")
+        got, want, route = _probe_counts(lt, rt, deltas)
+        assert route == "merge"
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, host)
+
+    @pytest.mark.parametrize("shape", ["neg_missing_keys", "probe_larger", "build_larger", "dense_ties"])
+    def test_merge_route_shapes(self, rng, monkeypatch, shape):
+        monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "0")
+        lt, rt = {
+            "neg_missing_keys": lambda: _tables(rng, 700, 300, lkeys=3, rkeys=9, neg=True),
+            "probe_larger": lambda: _tables(rng, 300, 2000),
+            "build_larger": lambda: _tables(rng, 2000, 300),
+            "dense_ties": lambda: (_dup(1500, 3), _dup(2000, 4)),
+        }[shape]()
+        got, want, route = _probe_counts(lt, rt)
+        assert route == "merge"
+        np.testing.assert_array_equal(got, want)
+
+    @pytest.mark.parametrize("shape", sorted(DECLINED))
+    def test_declined_shapes_take_the_level_loop(self, rng, monkeypatch, shape):
+        (lt, rt), edits = DECLINED[shape](rng)
+        tjoin, tl, tr = _join("torch", lt, rt)
+        tjoin = _with("torch", tjoin, lt, rt, **edits)
+        assert tjoin._merge_probe_counts(TorchCtx(TorchConfig()), tl, tr) is None
+        monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "0")
+        got, want, route = _probe_counts(lt, rt, **edits)
+        assert route == "level"
+        np.testing.assert_array_equal(got, want)
+
+    def test_other_backends_take_the_level_loop(self, rng, monkeypatch):
+        monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "0")
+        monkeypatch.setenv("SEQUILA_COUNT_BACKEND", "cosort")
+        got, want, route = _probe_counts(*_tables(rng, 300, 400))
+        assert route == "level"
+        np.testing.assert_array_equal(got, want)
+
+    @pytest.mark.parametrize("threshold", ["0", "65536"])
+    def test_two_key_join(self, rng, monkeypatch, threshold):
+        monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", threshold)
+        lt, rt = _tables(rng, 400, 500)
+        lt = lt.append_column("strand", pa.array(rng.choice(["+", "-"], lt.num_rows)))
+        rt = rt.append_column("strand", pa.array(rng.choice(["+", "-"], rt.num_rows)))
+        got, want, route = _probe_counts(lt, rt, keys=("contig", "strand"))
+        assert route == ("level" if threshold == "0" else "host")
+        np.testing.assert_array_equal(got, want)
+        assert want.sum() > 0
+
+    @pytest.mark.parametrize("threshold", ["0", "65536"])
+    @pytest.mark.parametrize("empty", ["build", "probe", "both"])
+    def test_empty_sides(self, rng, monkeypatch, threshold, empty):
+        monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", threshold)
+        lt, rt = _tables(rng, 100, 120)
+        if empty in ("build", "both"):
+            lt = lt.slice(0, 0)
+        if empty in ("probe", "both"):
+            rt = rt.slice(0, 0)
+        got, want, route = _probe_counts(lt, rt)
+        # _use_host is n + m <= threshold: two empty sides stay on the host
+        assert route == ("level" if threshold == "0" and empty != "both" else "host")
+        np.testing.assert_array_equal(got, want)
+        assert not got.any()
+
+
+def _plans(lt, rt, deltas):
+    """The merge probe-count plans of both packages on one table pair."""
+    jjoin, jl, jr = _join("jax", lt, rt, deltas)
+    tjoin, tl, tr = _join("torch", lt, rt, deltas)
+    jplan = jjoin._merge_probe_plan(jl, jr, *jjoin._sorted_count_inputs(jl, jr))
+    tplan = tjoin._merge_probe_plan(tl, tr, *tjoin._sorted_count_inputs(tl, tr))
+    return jplan, tplan, rt.num_rows
+
+
+class TestMergeProbeCountPasses:
+    @pytest.mark.parametrize("deltas", [(0, 0, 0, 0), (0, -1, 0, -1), (1, 0, 0, -1)])
+    def test_equals_jax(self, rng, deltas):
+        jplan, tplan, n = _plans(*_tables(rng, 500, 700, lkeys=4, rkeys=6, neg=True), deltas)
+        want = np.asarray(jmc.merge_probe_count_passes(*jplan))[:n]
+        got = tmc.merge_probe_count_passes(tplan)
+        assert got.dtype == torch.int32 and got.shape == (n,)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+    def test_dense_ties_equal_jax(self):
+        jplan, tplan, n = _plans(_dup(1200, 5), _dup(1800, 6), (0, 0, 0, 0))
+        want = np.asarray(jmc.merge_probe_count_passes(*jplan))[:n]
+        np.testing.assert_array_equal(tmc.merge_probe_count_passes(tplan).numpy(), want)
+
+    def test_plan_is_two_segments_of_one_launch(self, rng):
+        lt, rt = _tables(rng, 300, 500)
+        _, tplan, n = _plans(lt, rt, (0, 0, 0, 0))
+        a, b = tplan.segplan.segs
+        assert (a.strict, b.strict) == (False, True)
+        assert a.n_real == b.n_real == tplan.n == n
+        assert a.ord.dtype == torch.int64 and a.ord.numel() == n
+        # the build views are the tables, packed with PROBE_PAD; the probe
+        # views the queries, packed with BUILD_PAD by the caller
+        assert a.raw[3] == b.raw[3] == tmc.PROBE_PAD
+        assert (a.out, b.out) == ((2, 0), (2, n))
+
+    def test_build_pad_rows_count_in_neither_pass(self, rng):
+        """The build views keep their PAD tails, which pack to PROBE_PAD,
+        above every real query: the counts equal those over the real rows
+        alone."""
+        jplan, tplan, n = _plans(*_tables(rng, 333, 257), (0, 0, 0, 0))
+        want = np.asarray(jmc.merge_probe_count_passes(*jplan))[:n]
+        segs = tplan.segplan.segs
+        n_build = int((segs[0].raw[0] != 2**31 - 1).sum())
+        assert segs[0].n > n_build == 333
+        real = [s._replace(n=n_build, raw=(s.raw[0][:n_build], s.raw[1][:n_build], *s.raw[2:]))
+                for s in segs]
+        real = tplan._replace(segplan=tmc.plan_segments(real, "cpu"))
+        np.testing.assert_array_equal(tmc.merge_probe_count_passes(tplan).numpy(), want)
+        np.testing.assert_array_equal(tmc.merge_probe_count_passes(real).numpy(), want)
+
+
+def _sessions(lt, rt):
+    from sequila_tpu.session import SessionContext as JaxSession
+    from sequila_tpu_torch.session import SessionContext as TorchSession
+
+    out = []
+    for ctx in (TorchSession(device="cpu"), JaxSession()):
+        ctx.register_table("a", lt)
+        ctx.register_table("b", rt)
+        out.append(ctx)
+    return out
+
+
+GROUPED = {
+    "probe_key": "SELECT b.contig, count(*) FROM a JOIN b ON a.contig = b.contig "
+                 "AND a.s <= b.e AND a.e >= b.s GROUP BY b.contig ORDER BY b.contig",
+    "build_key_twin": "SELECT a.contig, count(*) AS n FROM a JOIN b ON a.contig = b.contig "
+                      "AND a.s <= b.e AND a.e >= b.s GROUP BY a.contig ORDER BY a.contig",
+    "null_group": "SELECT b.name, count(*) FROM a JOIN b ON a.contig = b.contig "
+                  "AND a.s < b.e AND a.e > b.s GROUP BY b.name ORDER BY b.name",
+    "two_keys": "SELECT b.contig, count(1) FROM a JOIN b ON a.contig = b.contig "
+                "AND a.strand = b.strand AND a.s <= b.e AND a.e >= b.s GROUP BY b.contig",
+}
+
+
+class TestGroupedCountSql:
+    @pytest.mark.parametrize("threshold", ["0", "65536"])
+    @pytest.mark.parametrize("query", sorted(GROUPED))
+    def test_grouped_count_equals_jax(self, rng, monkeypatch, threshold, query):
+        monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", threshold)
+        lt, rt = _tables(rng, 500, 700, lkeys=4, rkeys=6)
+        lt = lt.append_column("strand", pa.array(rng.choice(["+", "-"], lt.num_rows)))
+        rt = rt.append_column("strand", pa.array(rng.choice(["+", "-"], rt.num_rows)))
+        names = [None if i % 3 == 0 else f"g{i % 4}" for i in range(rt.num_rows)]
+        rt = rt.append_column("name", pa.array(names, pa.string()))
+        tctx, jctx = _sessions(lt, rt)
+        sql = GROUPED[query]
+        assert "GroupedIntervalCountExec" in tctx.sql(f"EXPLAIN {sql}").column_np("plan")[0]
+        got, want = tctx.sql(sql), jctx.sql(sql)
+        assert got.column_names == want.column_names
+        assert got.to_pylist() == want.to_pylist()
+        assert len(got.to_pylist()) > 1
+        if query == "null_group":
+            assert got.to_pylist()[-1][got.column_names[0]] is None
+        route = [k for c in tctx.last_metrics.counters.values() for k in c
+                 if k.startswith("probe_count_route_")]
+        expect = "host" if threshold != "0" else ("level" if query == "two_keys" else "merge")
+        assert route == [f"probe_count_route_{expect}"]
+
+    def test_all_null_probe_group_column(self, rng):
+        """A group column that is NULL on every probe row: one NULL group
+        holding every match."""
+        lt, rt = _tables(rng, 200, 300)
+        rt = rt.append_column("name", pa.nulls(rt.num_rows, pa.string()))
+        tctx, jctx = _sessions(lt, rt)
+        sql = GROUPED["null_group"]
+        got = tctx.sql(sql).to_pylist()
+        assert got == jctx.sql(sql).to_pylist()
+        assert len(got) == 1 and got[0]["name"] is None
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: python3 chip_smoke.py)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_warm_device_probe_count_launches_b1_once(rng, monkeypatch, cuda_device):
+    monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "0")
+    lt, rt = _tables(rng, 3000, 5000)
+    want = _join("torch", lt, rt)[0].per_probe_counts(TorchCtx(TorchConfig()))
+    join, _, _ = _join("torch", lt, rt, device=cuda_device)
+    join.per_probe_counts(TorchCtx(TorchConfig()))  # plans and uploads
+    b1, packs = tmc.merge_rank_sorted.launches, tmc.pack_view.launches
+    ctx = TorchCtx(TorchConfig())
+    got = join.per_probe_counts(ctx)
+    assert _route(ctx, join.op_id()) == "merge"
+    assert tmc.merge_rank_sorted.launches == b1 + 1
+    assert tmc.pack_view.launches == packs + 2
+    np.testing.assert_array_equal(got, want)
