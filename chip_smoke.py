@@ -98,7 +98,23 @@ Phases, each of which exits non-zero when it fails:
 5g. the warm 15M host-route ``SELECT *`` in this process (allocator tuned
    at import) and in a child with SEQUILA_MALLOC_TUNE=0, both printed;
    nothing is asserted on speed;
-6. the q1 fixture through the port's CLI (host route), expecting 16.
+5h. the genomic verbs over the genome pair in 4f's direction (the
+   7,684,066 genome probes enriched with the 2,350,965-row build):
+   ``count_overlaps`` and ``coverage`` through the DataFrame API and
+   through SQL (``FROM coverage('a', 'b')``), on the host route (the
+   default) and the device route (SEQUILA_HOST_THRESHOLD=0), from fresh
+   tables; every count and covered-bases value equal to the native host
+   index's (counts summing to 99,159,827); a warm device coverage launching
+   B1 once and pack_view 4 times, a warm count_overlaps B1 once and
+   pack_view twice, the host route nothing; first and warm times;
+   ``closest(k=3)``, ``subtract`` and ``merge`` timed at that shape; B1's
+   verb-mode launch (coverage's four rank passes as four segments) against
+   merge_verb_rank4_plain on the same inputs, timed as a bare launch beside
+   its bound and four torch.searchsorted calls with their scatters;
+6. the q1 fixture through the port's CLI (host route), expecting 16;
+6b. queries/q2-genomic-verbs.sql through the port's CLI with ``--device
+   cuda`` (at the default threshold and at SEQUILA_HOST_THRESHOLD=0) and
+   ``--device cpu``: the same tables once the query times are removed.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -165,6 +181,12 @@ NEAREST_WARM_QUERIES = 2
 # phase 5g: warm 15M host-route SELECT * queries with and without the
 # allocator tuning
 MALLOC_WARM_QUERIES = 5
+# phase 5h: the genomic verbs over the genome pair in phase 4f's direction
+# (the genome probes enriched with the genome build's overlaps)
+VERB_WARM_CALLS = 3
+VERB_CLOSEST_K = 3
+# phase 6b: q2 through the port's CLI, (device, SEQUILA_HOST_THRESHOLD)
+Q2_RUNS = (("cuda", None), ("cuda", "0"), ("cpu", None))
 STRATEGIES = ("runs", "bounds", "emit")
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "merge_rank_sorted": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:110"),
@@ -173,6 +195,8 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
     "pack_view": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:158"),
     # B1's per-probe mode: merge_probe_count_passes' two Pallas launches in one
     "merge_probe_ranks": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:229"),
+    # B1's verb mode: merge_verb_rank4's four Pallas launches in one
+    "merge_verb_ranks": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:323"),
     # B2 and B3: one merge path over (key, value) pairs
     "stream_rank_sorted": ("pair_merge.cu", "sequila_tpu/ops/pallas/stream_rank.py:86"),
     "rank_sorted_resident": ("pair_merge.cu", "sequila_tpu/ops/pallas/rank_kernel.py:126"),
@@ -1109,12 +1133,17 @@ def default_route(n: int, m: int) -> str:
             os.environ["SEQUILA_HOST_THRESHOLD"] = saved
 
 
-def timed_select(torch, ctx, query):
-    """(result table, seconds) of one ctx.sql, the device synchronised."""
+def timed(torch, fn):
+    """(result, seconds) of one call, the device synchronised."""
     t0 = time.perf_counter()
-    out = ctx.sql(query)
+    out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def timed_select(torch, ctx, query):
+    """(result table, seconds) of one ctx.sql, the device synchronised."""
+    return timed(torch, lambda: ctx.sql(query))
 
 
 def phase_materialize(torch, card):
@@ -1527,6 +1556,158 @@ def phase_malloc(card):
     os.environ.pop("SEQUILA_HOST_THRESHOLD", None)
 
 
+def unique_nbytes(*tensors) -> int:
+    """Bytes of the distinct tensors among ``tensors`` (by address): each
+    input read once, however many segments read it."""
+    return sum({t.data_ptr(): t.numel() * t.element_size() for t in tensors}.values())
+
+
+def phase_verbs(torch, sessions, card, err):
+    print("== phase 5h: the genomic verbs over the genome pair (count_overlaps, coverage)",
+          flush=True)
+    import pyarrow as pa
+
+    from sequila_tpu_torch import dataframe as df
+    from sequila_tpu_torch.models.table import Table
+    from sequila_tpu_torch.ops.cuda import merge_count as mc
+    from sequila_tpu_torch.ops.host_join import make_host_index
+    from sequila_tpu_torch.session import SessionContext
+
+    _, _, expected, t1, t2 = sessions[1]
+    m = len(t2["contig"])
+    c1, c2 = joint_codes(t1, t2)
+
+    def i32(x):
+        return np.ascontiguousarray(x, np.int32)
+
+    hidx = make_host_index(i32(c1), i32(t1["pos_start"]), i32(t1["pos_end"]))
+    q = (i32(c2), i32(t2["pos_start"]), i32(t2["pos_end"]))
+    want_counts = hidx.counts(*q)
+    want_cov = hidx.coverage(*q)
+    if int(want_counts.sum()) != expected or not np.array_equal(want_cov[0], want_counts):
+        fail(f"native host index: counts sum to {int(want_counts.sum())}, expected {expected}")
+    print(f"native host index: {m} per-probe counts summing to {expected}, covered bases "
+          f"summing to {int(want_cov[1].sum())}")
+
+    def check(label, out, verb):
+        got = [out.column_np("count")]
+        want = [want_counts]
+        if verb == "coverage":
+            got.append(out.column_np("bases"))
+            want = list(want_cov)
+        if out.num_rows != m or not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            fail(f"{label}: {verb} differs from the native host index")
+
+    # warm device launches (B1, pack_view) of each verb
+    verbs = {"count_overlaps": (1, 2), "coverage": (1, 4)}
+    verb_b1 = 0  # B1 launches of the device coverage calls (the kernels line)
+
+    def calls(label, route, verb, fn):
+        """First and warm calls of one verb on one route, each checked."""
+        nonlocal verb_b1
+        launches = reset_launches()
+        out, first = timed(torch, fn)
+        ran = launches()
+        check(f"{label} first call, route {route}", out, verb)
+        if route == "device" and (ran["merge_rank_sorted"] <= 0 or ran["pack_view"] <= 0):
+            fail(f"{label} {verb} on the device route launched {ran}")
+        b1 = ran["merge_rank_sorted"]
+        ts = []
+        for _ in range(VERB_WARM_CALLS):
+            launches = reset_launches()
+            out, dt = timed(torch, fn)
+            one = launches()
+            ts.append(dt)
+            b1 += one["merge_rank_sorted"]
+            if route == "device" and (one["merge_rank_sorted"], one["pack_view"]) != verbs[verb]:
+                fail(f"a warm device {verb} ({label}) launched {one}, expected B1 "
+                     f"{verbs[verb][0]} and pack_view {verbs[verb][1]} times")
+            if route == "host" and any(one.values()):
+                fail(f"the host route's {verb} ({label}) launched {one}")
+        check(f"{label} warm call, route {route}", out, verb)
+        if route == "device" and verb == "coverage" and label == "DataFrame":
+            verb_b1 = b1
+        warm = float(np.median(ts)) * 1e3
+        print(f"{verb} ({label}), route {route}: equal to the native host index; first call "
+              f"{first * 1e3:.3f} ms (launches {ran}), warm median {warm:.3f} ms over "
+              f"{VERB_WARM_CALLS}, min {min(ts) * 1e3:.3f} ms [{card}]", flush=True)
+
+    for route, thr in (("host", None), ("device", "0")):
+        os.environ.pop("SEQUILA_HOST_THRESHOLD", None)
+        if thr is not None:
+            os.environ["SEQUILA_HOST_THRESHOLD"] = thr
+        # fresh tables and sessions: each route's first call pays its own caches
+        a, b = Table(pa.table(t2)), Table(pa.table(t1))
+        for verb in verbs:
+            calls("DataFrame", route, verb, lambda: getattr(df, verb)(a, b, device="cuda"))
+        ctx = SessionContext(device="cuda")
+        ctx.register_table("a", pa.table(t2))
+        ctx.register_table("b", pa.table(t1))
+        for verb in verbs:
+            calls("SQL", route, verb, lambda: ctx.sql(f"SELECT * FROM {verb}('a', 'b')"))
+        del ctx
+
+    # the host-only verbs at the same shape
+    for label, fn, rows in (
+        (f"closest k={VERB_CLOSEST_K}", lambda: df.closest(a, b, k=VERB_CLOSEST_K, device="cuda"),
+         VERB_CLOSEST_K * m),
+        ("subtract", lambda: df.subtract(a, b), None),
+        ("merge (probes)", lambda: df.merge(a), None),
+    ):
+        out, first = timed(torch, fn)
+        out, warm = timed(torch, fn)
+        if rows is not None and out.num_rows != rows:
+            fail(f"{label}: {out.num_rows} rows, expected {rows}")
+        print(f"{label}: {out.num_rows} rows, first call {first * 1e3:.3f} ms, warm "
+              f"{warm * 1e3:.3f} ms [{card}]", flush=True)
+
+    # B1's verb-mode launch against its plain version on the same inputs,
+    # then timed as a bare launch beside its bound and the library calls
+    plan = mc.plan_verb_ranks(b, a, (0, 1, 2), (0, 1, 2), want4=True, device="cuda")
+    segs, n = plan.segplan.segs, plan.n
+    packed = [mc.pack_view(*p, mc.BUILD_PAD) for p in plan.packs]
+    out = torch.full((4 * n,), -1, dtype=torch.int32, device=packed[0].device)
+    launch = mc.segments_launcher(plan.segplan, (*packed, out))
+    launch()
+    want_r = mc.merge_verb_rank4_plain(plan)
+    d = max_diff(torch, out, want_r.view(-1))
+    err["merge_verb_ranks"] = d
+    if d:
+        fail(f"B1's verb-mode launch: max |diff| {d} against merge_verb_rank4_plain")
+    if not np.array_equal((out[:n] - out[n:2 * n]).cpu().numpy(), want_counts):
+        fail("B1's verb-mode ranks do not give the native host index's counts")
+    print(f"B1's verb-mode launch (4 segments, tables of {segs[0].n} rows packed on load, "
+          f"{segs[0].m} queries each, ranks through the orders): equal to "
+          "merge_verb_rank4_plain", flush=True)
+    # the library yardstick: four torch.searchsorted calls on the same packed
+    # values widened to int64 (u32 order), four scatters; the tables are
+    # packed outside the timed window
+    tabs = [mc.as_u32(mc.pack_view_plain(*s.raw)) for s in segs]
+    qrys = [mc.as_u32(p) for p in packed]
+    lib = torch.empty((4, n), dtype=torch.int32, device=out.device)
+
+    def library():
+        for i, s in enumerate(segs):
+            ranks = torch.searchsorted(tabs[i], qrys[i], right=not s.strict, out_int32=True)
+            lib[i].index_copy_(0, s.ord, ranks[:n])
+        return lib
+
+    if not torch.equal(library().view(-1), out):
+        fail("the library calls differ from B1's verb-mode ranks")
+    verb_bytes = unique_nbytes(*packed, out, *(t for s in segs for t in (*s.raw[:3], s.ord)))
+    kernel_ms = time_kernel(
+        torch, "merge_verb_ranks (B1's verb mode)",
+        lambda: mc.merge_rank_segments_plain(segs, (*packed, out)), launch, library,
+        verb_bytes, sum(s.n + s.m for s in segs),
+        f"4 segments, N={segs[0].n} M={segs[0].m}, ranks through the orders", card)
+    whole = time_events(torch, lambda: mc.merge_verb_rank4(plan), TIMED_LAUNCHES)
+    print(f"merge_verb_rank4 whole (4 pack_view and 1 B1 launch): {whole:.4f} ms [{card}]",
+          flush=True)
+    os.environ.pop("SEQUILA_HOST_THRESHOLD", None)
+    del tabs, qrys, lib, out, want_r, packed, plan
+    return {"merge_rank_sorted": verb_b1}, kernel_ms
+
+
 def stream_pass(ctx, query, check):
     """(rows, checksum or None, largest batch, seconds) of one sql_batches
     run; with ``check`` every batch is checksummed, and a batch above the
@@ -1610,6 +1791,33 @@ def phase_q1():
         fail(f"q1 did not return {Q1_EXPECTED}")
 
 
+def phase_q2():
+    print("== phase 6b: q2-genomic-verbs.sql through the port's CLI on cuda and on cpu",
+          flush=True)
+    import re
+
+    outs = {}
+    for device, thr in Q2_RUNS:
+        env = {k: v for k, v in os.environ.items() if k != "SEQUILA_HOST_THRESHOLD"}
+        if thr is not None:
+            env["SEQUILA_HOST_THRESHOLD"] = thr
+        res = subprocess.run(
+            [sys.executable, "-m", "sequila_tpu_torch.cli", "--device", device,
+             "--file", "queries/q2-genomic-verbs.sql"],
+            capture_output=True, text=True, timeout=300, env=env,
+        )
+        if res.returncode != 0:
+            fail(f"q2 CLI --device {device} exited {res.returncode}: {res.stderr.strip()[-2000:]}")
+        outs[(device, thr)] = re.sub(r"Query took [0-9.]+ seconds\.", "", res.stdout)
+    first = outs[Q2_RUNS[0]]
+    for run, text in outs.items():
+        if text != first:
+            fail(f"q2 through the CLI with (device, SEQUILA_HOST_THRESHOLD) {run} printed "
+                 f"another table than {Q2_RUNS[0]}")
+    print(first.strip())
+    print(f"q2 printed the same tables for every (device, SEQUILA_HOST_THRESHOLD) in {Q2_RUNS}")
+
+
 def main() -> None:
     import torch
 
@@ -1641,19 +1849,23 @@ def main() -> None:
     phase_routing(torch, sessions, card)
     phase_nearest(torch, sessions, card)
     phase_malloc(card)
+    verb_launches, kernel_ms["merge_verb_ranks"] = phase_verbs(torch, sessions, card, err)
     os.environ.pop("SEQUILA_HOST_THRESHOLD", None)
     phase_q1()
+    phase_q2()
     if "jax" in sys.modules:
         fail("the port imported jax")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches come from the run of its own path: B1 and
     # pack_view from the merge count(*) route, B1's level mode from the
     # device merge SELECT *, B1's per-probe mode from the merge route's
-    # grouped count, B2 from the stream route, B3 from rank_lex_resident
+    # grouped count, B1's verb mode from the device coverage calls of 5h,
+    # B2 from the stream route, B3 from rank_lex_resident
     launches = {
         "merge_rank_sorted": merge_launches["merge_rank_sorted"],
         "merge_level_ranks": mat_launches["merge_rank_sorted"],
         "merge_probe_ranks": probe_launches["merge_rank_sorted"],
+        "merge_verb_ranks": verb_launches["merge_rank_sorted"],
         "pack_view": merge_launches["pack_view"],
         "stream_rank_sorted": stream_launches["stream_rank_sorted"],
         "rank_sorted_resident": resident_launches["rank_sorted_resident"],

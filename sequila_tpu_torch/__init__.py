@@ -6,8 +6,9 @@ host operators, the native C++ host index) are copies of the reference's;
 the device work runs as torch tensors on the device the session names,
 with hand-written CUDA kernels for Hopper (``csrc/``) where the reference
 used Pallas.  The port covers the SQL interval join (count(*), grouped
-count(*), SELECT * and its streamed forms, nearest); see ROADMAP.md for the
-slices still to come.
+count(*), SELECT * and its streamed forms, nearest), the genomic verbs
+(``sequila_tpu_torch.dataframe`` and their SQL table functions) and
+``IntervalMap``; see ROADMAP.md for the slices still to come.
 
 Importing the package tunes glibc's allocator as the reference does
 (``_malloc.tune_malloc``; SEQUILA_MALLOC_TUNE=0 turns it off).
@@ -27,11 +28,17 @@ def __getattr__(name):
         from sequila_tpu_torch.session import SessionContext
 
         return SessionContext
+    if name == "IntervalMap":
+        # the superintervals-wheel API surface (reference intervalmap.pyx)
+        from sequila_tpu_torch.intervalmap import IntervalMap
+
+        return IntervalMap
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 __all__ = [
     "Algorithm",
+    "IntervalMap",
     "SequilaConfig",
     "SessionContext",
     "__version__",

@@ -23,16 +23,6 @@ from sequila_tpu_torch.models.table import Table, encode_join_keys
 from sequila_tpu_torch.planner.expr import JoinFilter, PhysicalExpr
 
 
-def _searchsorted_comp(sorted_comp, q, side="left") -> np.ndarray:
-    """searchsorted over int64 composites: threaded native when available."""
-    from sequila_tpu_torch.native.loader import searchsorted64
-
-    out = searchsorted64(sorted_comp, q, side)
-    if out is not None:
-        return out
-    return np.searchsorted(sorted_comp, q, side=side)
-
-
 def equi_join_pairs(
     left: Table,
     right: Table,
@@ -51,6 +41,8 @@ def equi_join_pairs(
     order = _stable_argsort_int(lcodes).astype(np.int64, copy=False)
     sorted_codes = lcodes[order]
     if len(rcodes) >= (1 << 15):
+        from sequila_tpu_torch.ops.genomic import _searchsorted_comp
+
         s64 = sorted_codes.astype(np.int64)
         q64 = rcodes.astype(np.int64)
         lo = _searchsorted_comp(s64, q64, side="left")

@@ -321,9 +321,17 @@ class Table:
         """(keys, values, n, order) numpy arrays of the sorted view, cached."""
         key = ("sivh", key_col, val_col)
         if key not in self._i32:
+            from sequila_tpu_torch.native.loader import argsort64
+
             codes, _, _ = self.dict_codes(key_col)
             vals = self.column_as_i32(val_col)
-            order = np.lexsort((vals, codes))
+            # the stable native radix over the order-preserving (code, value)
+            # composite is np.lexsort's order, about 8x faster
+            order = argsort64(
+                (codes.astype(np.int64) << 32) | (vals.astype(np.int64) + 2**31)
+            )
+            if order is None:
+                order = np.lexsort((vals, codes))
             n = len(order)
             pad = -(-max(n, 1) // 2048) * 2048
             PADV = np.int32(2**31 - 1)

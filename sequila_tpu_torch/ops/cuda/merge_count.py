@@ -16,7 +16,9 @@ sorted sequence inside another:
   hand-written CUDA kernels (csrc/merge_rank.cu).  A count(*) is one
   launch for both passes (``merge_count_passes``), and so are per-probe
   counts (``merge_probe_count_passes``: the probe views ranked in the
-  build views, the ranks written through the views' orders).
+  build views, the ranks written through the views' orders) and the
+  genomic verbs' four coverage ranks (``plan_verb_ranks`` /
+  ``merge_verb_rank4``, finished by ``coverage_from_ranks``).
 
 Count identity (BITS, Layer & Quinlan 2012):
 
@@ -563,6 +565,162 @@ def merge_probe_count_passes(plan: ProbeCountPlan) -> torch.Tensor:
     ranks = torch.empty((2, plan.n), dtype=torch.int32, device=q_e.device)
     merge_rank_segments(plan.segplan, (q_e, q_s, ranks.view(-1)))
     return ranks[0] - ranks[1]
+
+
+# ---------------------------------------------------------------------------
+# The genomic verbs' rank passes (count_overlaps, coverage)
+# ---------------------------------------------------------------------------
+
+
+class VerbRankPlan(NamedTuple):
+    segplan: SegmentPlan  # the four segments of one B1 launch
+    packs: tuple  # per query slot (k, v, c_tab) of a probe view, packed with BUILD_PAD
+    n: int  # the probe's real rows
+
+
+def plan_verb_ranks(build, probe, cols_b, cols_q, *, want4: bool, device):
+    """Plan of the verb layer's merge rank passes on ``device``, or None.
+
+    ``cols_*`` are (key, start, end) column INDICES of Tables (build = the
+    counted side, probe = the enriched side; no ±deltas at the verb layer).
+    want4=False returns the ProbeCountPlan of merge_probe_count_passes
+    (count_overlaps); want4=True a VerbRankPlan of merge_verb_rank4
+    (coverage).  None when the preconditions or the 32-bit span budget
+    disqualify the packing, checked in the JAX package's order: an empty
+    side, NULL keys, a degenerate probe or inverted build row (they break
+    the BITS rank algebra), key columns of different types, then a joint
+    domain over 32 bits; callers fall back to the rank kernels.  Port of
+    sequila_tpu/ops/pallas/merge_count.py:359::plan_verb_ranks without its
+    host chunk windows and padded orders (TPU workarounds the merge path
+    does not need): the orders are the views' int64 real-row orders."""
+    from sequila_tpu_torch.models.table import merge_dictionaries
+
+    kb, s_b, e_b = cols_b
+    kq, s_q, e_q = cols_q
+    if build.num_rows == 0 or probe.num_rows == 0:
+        return None
+    if build.column(kb).null_count or probe.column(kq).null_count:
+        return None
+    if probe.min_i32_diff(e_q, s_q) < 0 or build.min_i32_diff(e_b, s_b) < 0:
+        return None
+    _, bvals, _ = build.dict_codes(kb)
+    _, qvals, _ = probe.dict_codes(kq)
+    if len(bvals) and len(qvals) and type(bvals[0]) is not type(qvals[0]):
+        return None
+    remap_b, remap_q = merge_dictionaries(bvals, qvals)
+    nkeys = int(max(remap_b.max(initial=-1), remap_q.max(initial=-1))) + 1
+    bs_mm = build.per_key_minmax(kb, s_b)
+    be_mm = build.per_key_minmax(kb, e_b)
+    qs_mm = probe.per_key_minmax(kq, s_q)
+    qe_mm = probe.per_key_minmax(kq, e_q)
+
+    def dom(b_mm, q_mm):
+        return _joint_domain(
+            remap_b, remap_q, nkeys, b_mm[0], b_mm[1], 0, q_mm[0], q_mm[1], 0
+        )
+
+    # domain 2 (bs, qe): #{start_b <= qe}; domain 1 (be, qs): #{end_b < qs};
+    # coverage adds domain 3 (be, qe): #{end_b <= qe} and 4 (bs, qs):
+    # #{start_b < qs}
+    doms = [dom(bs_mm, qe_mm), dom(be_mm, qs_mm)]
+    if want4:
+        doms += [dom(be_mm, qe_mm), dom(bs_mm, qs_mm)]
+    if None in doms:
+        return None
+    dev = torch.device(device)
+    c_q = [c_tab_tensor(_c_tab(remap_q, *d, 0), dev) for d in doms]
+    c_b = [c_tab_tensor(_c_tab(remap_b, *d, 0), dev) for d in doms]
+    pqe_k, pqe_v, _, _, _ = probe.sorted_interval_view(kq, e_q, dev)
+    pqs_k, pqs_v, _, _, _ = probe.sorted_interval_view(kq, s_q, dev)
+    bst_k, bst_v, _, _, _ = build.sorted_interval_view(kb, s_b, dev)
+    ben_k, ben_v, _, _, _ = build.sorted_interval_view(kb, e_b, dev)
+    ord_qe, ord_qs = (
+        torch.from_numpy(probe.sorted_interval_order(kq, c).astype(np.int64)).to(dev)
+        for c in (e_q, s_q)
+    )
+    if not want4:
+        return plan_probe_counts(
+            pqe_k, pqe_v, c_q[0], bst_k, bst_v, c_b[0],
+            pqs_k, pqs_v, c_q[1], ben_k, ben_v, c_b[1], ord_qe, ord_qs,
+        )
+    n = probe.num_rows
+    # per segment: (queries, the build view with its C table, strict, order);
+    # query slot i holds the probe view of segment i, ranks go to row i
+    parts = (
+        ((pqe_k, pqe_v, c_q[0]), (bst_k, bst_v, c_b[0]), False, ord_qe),  # ub_s
+        ((pqs_k, pqs_v, c_q[1]), (ben_k, ben_v, c_b[1]), True, ord_qs),   # lb_e
+        ((pqe_k, pqe_v, c_q[2]), (ben_k, ben_v, c_b[2]), False, ord_qe),  # ub_e
+        ((pqs_k, pqs_v, c_q[3]), (bst_k, bst_v, c_b[3]), True, ord_qs),   # lb_s
+    )
+    segs = tuple(
+        Segment(tab[0].numel(), qry[0].numel(), q=(i, 0), strict=strict,
+                raw=(*tab, PROBE_PAD), out=(4, i * n), ord=order, n_real=n)
+        for i, (qry, tab, strict, order) in enumerate(parts)
+    )
+    return VerbRankPlan(plan_segments(segs, dev), tuple(p[0] for p in parts), n)
+
+
+def merge_verb_rank4(plan: VerbRankPlan) -> torch.Tensor:
+    """The four per-probe rank passes of the coverage decomposition
+    (ops/genomic.py::coverage's level-free algebra) over cached sorted
+    views, no device sort: (4, n) int32 in probe row order, rows
+    [ub_s, lb_e, ub_e, lb_s] = [#{start_b <= qe}, #{end_b < qs},
+    #{end_b <= qe}, #{start_b < qs}].
+
+    Four pack_view launches pack the probe views ((k, qe) under domains 2
+    and 3, (k, qs) under 1 and 4, BUILD_PAD), then ONE B1 launch runs four
+    segments: the build views are the tables, packed on load with
+    PROBE_PAD, and each segment writes its real ranks through the probe
+    view's order into its row.  Cross-key rows land in matched pass pairs
+    and cancel in every consumer expression (total = ub_s - lb_e,
+    nA = ub_e - lb_e, nB = ub_s - lb_s, and the prefix-sum differences read
+    same-key rank ranges by construction).  Port of
+    sequila_tpu/ops/pallas/merge_count.py:303::merge_verb_rank4, whose four
+    Pallas B1 calls (:323-342) are the four segments here."""
+    packed = [pack_view(*p, BUILD_PAD) for p in plan.packs]
+    ranks = torch.empty((4, plan.n), dtype=torch.int32, device=packed[0].device)
+    merge_rank_segments(plan.segplan, (*packed, ranks.view(-1)))
+    return ranks
+
+
+def merge_verb_rank4_plain(plan: VerbRankPlan) -> torch.Tensor:
+    """Plain PyTorch merge_verb_rank4 with no segment machinery: per pass
+    pack_view_plain of both sides, merge_rank_plain and one scatter
+    through the order."""
+    out = torch.zeros((4, plan.n), dtype=torch.int32, device=plan.segplan.device)
+    for row, seg, qry in zip(out, plan.segplan.segs, plan.packs):
+        ranks = merge_rank_plain(pack_view_plain(*seg.raw), pack_view_plain(*qry, BUILD_PAD),
+                                 strict=seg.strict)
+        row[seg.ord] = ranks[:plan.n]
+    return out
+
+
+def coverage_from_ranks(ranks, qs, qe, psum, esum):
+    """int64 finish of the coverage decomposition over merge ranks, as
+    torch ops on the ranks' device; returns (count, bases) int64 numpy
+    arrays, the only data that crosses to the host.
+
+    ``ranks`` = (4, n) int32 [ub_s, lb_e, ub_e, lb_s] in probe row order
+    (merge_verb_rank4); ``qs``/``qe`` the probe's starts and ends in row
+    order; ``psum``/``esum`` = int64 exclusive prefix sums of the build's
+    (k, start)-view starts / (k, end)-view ends.  Same algebra as
+    ops/genomic.py::coverage's level-free branch.  Port of
+    sequila_tpu/ops/pallas/merge_count.py:460::coverage_from_ranks."""
+    dev = ranks.device
+
+    def i64(t):
+        return torch.as_tensor(t).to(dev, torch.int64)
+
+    ub_s, lb_e, ub_e, lb_s = ranks.to(torch.int64)
+    psum, esum = i64(psum), i64(esum)
+    total = ub_s - lb_e
+    nA = ub_e - lb_e
+    nB = ub_s - lb_s
+    sumA_end = esum[ub_e] - esum[lb_e]
+    sumB_start = psum[ub_s] - psum[lb_s]
+    sum_min_end = sumA_end + i64(qe) * (total - nA)
+    sum_max_start = sumB_start + i64(qs) * (total - nB)
+    return total.cpu().numpy(), (sum_min_end - sum_max_start).cpu().numpy()
 
 
 def count_segments(n1: int, m1: int, n2: int, m2: int) -> tuple:

@@ -32,12 +32,18 @@ The padding (``_bucket``) and the field layout are the JAX package's, so
 both packages build identical arrays from one input.  The level view keeps
 numpy host twins of its keys, starts, ends and positions (emission expands
 device bounds into build rows on the host through ``pos_host``) and each
-level's maximum length.  The coverage
-view the genomic verbs read and the fixed ``layout`` of a partitioned
-build are not ported yet (ROADMAP.md A7, A9).
+level's maximum length.
+
+**Coverage view** (the level-free coverage decomposition of
+ops/genomic.coverage): the (key, start)- and (key, end)-sorted columns and
+the int64 exclusive prefix sums of their starts and ends, pad rows counted
+as 0.  The fixed ``layout`` of a partitioned build is not ported yet
+(ROADMAP.md A9).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -58,6 +64,22 @@ def _bucket(n: int, minimum: int = 8) -> int:
     if n <= b:
         return b
     return -(-n // 65536) * 65536
+
+
+class CoverageView(NamedTuple):
+    """The index's sorted columns for ops/genomic.coverage: int32 tensors on
+    the index's device, padded to ``_bucket(n)`` with (PAD_KEY, PAD_VAL),
+    and int64 exclusive prefix sums (length + 1) of ``ss`` and ``ee`` with
+    pad rows counted as 0, on the device and as numpy twins."""
+
+    ks: torch.Tensor  # keys sorted by (key, start)
+    ss: torch.Tensor  # starts sorted by (key, start)
+    ke: torch.Tensor  # keys sorted by (key, end)
+    ee: torch.Tensor  # ends sorted by (key, end)
+    psum: torch.Tensor
+    esum: torch.Tensor
+    psum_host: np.ndarray
+    esum_host: np.ndarray
 
 
 def assign_levels(keys: np.ndarray, starts: np.ndarray, ends: np.ndarray):
@@ -110,6 +132,7 @@ class IntervalIndex:
         self._bits = None
         self._lvl = None
         self._win = None
+        self._cov = None
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -273,6 +296,31 @@ class IntervalIndex:
             d = self._to_device
             self._win = (d(k), d(s), d(e), d(p), max_len)
         return self._win
+
+    # -- coverage view (level-free coverage decomposition) -----------------
+    @property
+    def coverage_view(self) -> CoverageView:
+        """The (key, start)- and (key, end)-sorted columns with the prefix
+        sums of their starts and ends (see CoverageView)."""
+        if self._cov is None:
+            n = self.n_rows
+            n0 = _bucket(max(n, 1))
+            ks = np.full(n0, PAD_KEY, np.int32)
+            ss = np.full(n0, PAD_VAL, np.int32)
+            ke = np.full(n0, PAD_KEY, np.int32)
+            ee = np.full(n0, PAD_VAL, np.int32)
+            if n:
+                o1 = np.lexsort((self._hs, self._hk))
+                ks[:n] = self._hk[o1]
+                ss[:n] = self._hs[o1]
+                o2 = np.lexsort((self._he, self._hk))
+                ke[:n] = self._hk[o2]
+                ee[:n] = self._he[o2]
+            ps = np.concatenate([[0], np.cumsum(np.where(ks == PAD_KEY, 0, ss).astype(np.int64))])
+            pe = np.concatenate([[0], np.cumsum(np.where(ke == PAD_KEY, 0, ee).astype(np.int64))])
+            d = self._to_device
+            self._cov = CoverageView(d(ks), d(ss), d(ke), d(ee), d(ps), d(pe), ps, pe)
+        return self._cov
 
 
 def build_interval_index(

@@ -153,8 +153,11 @@ class _Bound:
 
 class Binder:
     def __init__(self, catalog, runner=None, views=None, view_guard=None,
-                 info_schema=None):
+                 info_schema=None, *, device):
         self.catalog = catalog
+        # the session's torch device: the genomic table functions that
+        # reach a kernel run there (_genomic_table_function)
+        self.device = device
         self.views = views or {}
         # info_schema: Callable[[str], Table | None] — resolves
         # information_schema.<name> virtual tables (session-provided)
@@ -480,6 +483,11 @@ class Binder:
         "overlap", "count_overlaps", "nearest", "closest", "coverage",
         "subtract", "window", "reldist",
     }
+    # TFs whose verbs can reach a kernel: they run on the session's device
+    _DEVICE_TFS = {
+        "overlap", "count_overlaps", "nearest", "closest", "coverage",
+        "window", "jaccard",
+    }
 
     def _genomic_table_function(self, fname, args):
         """FROM merge('reads'), FROM count_overlaps('a', 'b'), ... —
@@ -514,19 +522,20 @@ class Binder:
         if fname == "depth":
             return _df.depth(t0)
         t1 = self._tf_table(consts[1], fname)
+        dev = {"device": self.device} if fname in self._DEVICE_TFS else {}
         if fname == "closest":
             k = int(consts[2]) if len(consts) > 2 else 1
-            return _df.closest(t0, t1, k=k, strand=strand)
+            return _df.closest(t0, t1, k=k, strand=strand, **dev)
         if fname == "window":
             if len(consts) < 3:
                 raise PlanError("window takes (a, b, bp[, strand])")
-            return _df.window(t0, t1, window=int(consts[2]), strand=strand)
+            return _df.window(t0, t1, window=int(consts[2]), strand=strand, **dev)
         if fname == "jaccard":
-            stats = _df.jaccard(t0, t1)
+            stats = _df.jaccard(t0, t1, **dev)
             return _Table(
                 _pa.table({k: [v] for k, v in stats.items()})
             )
-        return getattr(_df, fname)(t0, t1, strand=strand)
+        return getattr(_df, fname)(t0, t1, strand=strand, **dev)
 
     def _table_function(self, tf):
         """FROM-clause table functions: DataFusion's ``generate_series`` /

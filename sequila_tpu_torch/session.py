@@ -304,7 +304,7 @@ class SessionContext:
             return
         Binder(
             self.catalog, runner=self._run_query, views=self.views,
-            view_guard=self._view_guard, info_schema=self._info_schema,
+            view_guard=self._view_guard, info_schema=self._info_schema, device=self.device,
         ).bind_select(stmt)
 
     def _insert_into(self, stmt: ast.InsertInto) -> None:
@@ -540,7 +540,7 @@ class SessionContext:
                     schema = Binder(
                         self.catalog, runner=self._run_query,
                         views=self.views, view_guard=self._view_guard,
-                        info_schema=self._info_schema,
+                        info_schema=self._info_schema, device=self.device,
                     ).bind_select(sel).schema()
                 except Exception:
                     continue  # unbindable right now: skip, don't fail
@@ -676,7 +676,7 @@ class SessionContext:
     def create_physical_plan(self, sel: ast.Select):
         plan = Binder(
             self.catalog, runner=self._run_query, views=self.views,
-            view_guard=self._view_guard, info_schema=self._info_schema,
+            view_guard=self._view_guard, info_schema=self._info_schema, device=self.device,
         ).bind_select(sel)
         plan = PredicatePushdownRule().optimize(plan)
         plan = IntervalJoinRule(self.config, self.device).optimize(plan)
@@ -750,7 +750,7 @@ class SessionContext:
             scan = ScanExec("__union__", out, None)
             b = Binder(
                 self.catalog, runner=self._run_query, views=self.views,
-                view_guard=self._view_guard, info_schema=self._info_schema,
+                view_guard=self._view_guard, info_schema=self._info_schema, device=self.device,
             )
             schema = scan.schema()
             exprs, asc, nfs = [], [], []
