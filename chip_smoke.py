@@ -114,7 +114,27 @@ Phases, each of which exits non-zero when it fails:
 6. the q1 fixture through the port's CLI (host route), expecting 16;
 6b. queries/q2-genomic-verbs.sql through the port's CLI with ``--device
    cuda`` (at the default threshold and at SEQUILA_HOST_THRESHOLD=0) and
-   ``--device cpu``: the same tables once the query times are removed.
+   ``--device cpu``: the same tables once the query times are removed;
+7. Partitioned mode: sessions on the card with ``SET
+   datafusion.execution.target_partitions = 4`` (the mesh printed: one
+   shard a card) under each ``sequila.partitioned_distribution`` (auto,
+   hash, shuffle, skew): count(*) of the chr1 and genome pairs, ``SELECT
+   *`` of the 15M-row pairing with the host route's checksum (and once
+   through sql_batches), nearest at 5f's genome build x 1,000,000 probes
+   row for row equal to the single-device device route, and the grouped
+   count's 24 groups, each timed beside the single-device warm time (first
+   and warm; one run where the program is another's: the grouped count
+   outside hash, nearest under shuffle) with its ``distribution_<name>``
+   metric; the verbs count_overlaps and coverage with ``partitions=4``
+   over 5h's pair equal to the single-device verbs.  Then the same
+   queries, one run each, and nearest over the chr1 pair (its one contig
+   split by skew), on a (2, 2) mesh that repeats the card (as the CPU
+   mesh repeats the host device), so that one card runs every
+   multi-shard path: the shuffle's exchange, split hot keys and their
+   ownership filter, the nearest fringe, LPT packing and the probe-order
+   restore.  It fails if a hand kernel launched in the phase.  Last, each
+   shard's level bounds by the 'sort' and 'bsearch' rank strategies,
+   equal and timed.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -188,6 +208,10 @@ VERB_CLOSEST_K = 3
 # phase 6b: q2 through the port's CLI, (device, SEQUILA_HOST_THRESHOLD)
 Q2_RUNS = (("cuda", None), ("cuda", "0"), ("cpu", None))
 STRATEGIES = ("runs", "bounds", "emit")
+# phase 7: Partitioned mode at target_partitions = 4 under each distribution
+PART_TARGET = 4
+PART_DISTS = ("auto", "hash", "shuffle", "skew")
+BOUNDS_REPS = 3
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "merge_rank_sorted": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:110"),
     # B1's level mode: every level's pair of Pallas launches in one
@@ -1818,6 +1842,237 @@ def phase_q2():
     print(f"q2 printed the same tables for every (device, SEQUILA_HOST_THRESHOLD) in {Q2_RUNS}")
 
 
+def distribution_of(session) -> str:
+    """The distribution the session's last Partitioned-mode query took,
+    from the operator's ``distribution_<name>`` metric."""
+    names = [k for c in session.last_metrics.counters.values() for k in c
+             if k.startswith("distribution_")]
+    if len(names) != 1:
+        fail(f"expected one distribution metric, got {names}")
+    return names[0][len("distribution_"):]
+
+
+def phase_partitioned(torch, sessions, mat_ctx, mat_expected, mat_ref, card):
+    print(f"== phase 7: Partitioned mode (target_partitions = {PART_TARGET}) on "
+          "SessionContext(device='cuda')", flush=True)
+    import pyarrow as pa
+
+    from sequila_tpu_torch import bench_data as bd
+    from sequila_tpu_torch import dataframe as df
+    from sequila_tpu_torch.models.table import Table
+    from sequila_tpu_torch.parallel import engine
+    from sequila_tpu_torch.parallel import partitioned_join as pj
+    from sequila_tpu_torch.parallel.engine import get_engine_mesh
+    from sequila_tpu_torch.parallel.mesh import make_mesh
+    from sequila_tpu_torch.session import SessionContext
+
+    mesh = get_engine_mesh(PART_TARGET, "cuda")
+    print(f"{torch.cuda.device_count()} card(s): {mesh}")
+    if any(d.type != "cuda" for d in mesh.devices.reshape(-1)):
+        fail(f"the partitioned mesh holds a device that is not a card: {mesh}")
+    os.environ.pop("SEQUILA_HOST_THRESHOLD", None)
+    t1, t2 = sessions[1][3], sessions[1][4]
+    tables = {
+        "chr1": {n: sessions[0][1].table(n) for n in ("s1", "s2")},
+        "genome": {n: sessions[1][1].table(n) for n in ("s1", "s2")},
+        "mat": {n: mat_ctx.table(n) for n in ("s1", "s2")},
+        "nearest": {"s1": Table(pa.table(t1)), "s2": Table(pa.table(bd.gen_genome_table(*NEAREST_PROBES)))},
+    }
+
+    def session(pair, dist, target=PART_TARGET):
+        ctx = SessionContext(device="cuda")
+        for name, t in tables[pair].items():
+            ctx.register_table(name, t)
+        ctx.sql(f"SET datafusion.execution.target_partitions = {target}")
+        ctx.sql(f"SET sequila.partitioned_distribution = {dist}")
+        return ctx
+
+    # the single-device references and their warm times, from this call
+    single = {}
+    for label, ctx, fn in (
+        ("count chr1", sessions[0][1], lambda c: count(c, bd.QUERY)),
+        ("count genome", sessions[1][1], lambda c: count(c, bd.QUERY)),
+        ("select * 15M", mat_ctx, lambda c: c.sql(SELECT_STAR)),
+        ("grouped count", sessions[1][1], lambda c: c.sql(GROUPED_QUERY)),
+    ):
+        fn(ctx)
+        single[label] = timed(torch, lambda: fn(ctx))[1]
+    os.environ["SEQUILA_HOST_THRESHOLD"] = "0"
+    # nearest over the chr1 pair too: its one contig is the hot key that
+    # skew splits, so the split mesh runs the nearest fringe
+    near_want = {}
+    for pair, label in (("nearest", "nearest"), ("chr1", "nearest chr1")):
+        near_ctx = session(pair, "auto", target=1)
+        near_ctx.sql("SET sequila.interval_join_algorithm TO CoitreesNearest")
+        near_want[label] = near_ctx.sql(SELECT_STAR)
+        single[label] = timed_select(torch, near_ctx, SELECT_STAR)[1]
+        if route_of(near_ctx, "nearest") != "device":
+            fail(f"the single-device {label} reference took route "
+                 f"{route_of(near_ctx, 'nearest')}")
+    os.environ.pop("SEQUILA_HOST_THRESHOLD", None)
+    a, b = tables["genome"]["s2"], tables["genome"]["s1"]
+    verb_want = {}
+    for verb in ("count_overlaps", "coverage"):
+        verb_want[verb] = getattr(df, verb)(a, b, device="cuda")
+        single[verb] = timed(torch, lambda: getattr(df, verb)(a, b, device="cuda"))[1]
+
+    def check_count(expected):
+        def check(got):
+            if got != expected:
+                fail(f"count {got}, expected {expected}")
+        return check
+
+    def check_select(out):
+        if checksum([out]) != mat_ref:
+            fail(f"SELECT *: (rows, checksum) {checksum([out])} != host route {mat_ref}")
+
+    def check_nearest(label):
+        def check(out):
+            if not out.arrow.equals(near_want[label].arrow):
+                fail(f"{label}: rows differ from the single-device device route's")
+        return check
+
+    def check_grouped(out):
+        total = int(out.column_np(1).astype(np.int64).sum())
+        if out.num_rows != GENOME_CONTIGS or total != GENOME_EXPECTED:
+            fail(f"grouped count: {out.num_rows} groups summing to {total}")
+
+    def batches(ctx):
+        rows, acc = 0, 0
+        for bt in ctx.sql_batches(SELECT_STAR):
+            rows += bt.num_rows
+            acc = (acc + checksum([bt])[1]) % 2**64
+        return rows, acc
+
+    def check_batches(got):
+        if got != mat_ref:
+            fail(f"sql_batches: (rows, checksum) {got} != host route {mat_ref}")
+
+    def timed_pair(label, dist, ctx, fn, check, single_label, want_dist, warm=True):
+        out, first = timed(torch, lambda: fn(ctx))
+        check(out)
+        # per-probe counts have a hash program only and record no metric,
+        # as in the JAX package
+        got_dist = distribution_of(ctx) if want_dist != "hash only" else want_dist
+        if want_dist not in (None, "hash only") and got_dist != want_dist:
+            fail(f"{label} [{dist}]: distribution {got_dist}, expected {want_dist}")
+        times = f"one run {first * 1e3:.3f} ms"
+        if warm:
+            out, dt = timed(torch, lambda: fn(ctx))
+            check(out)
+            times = f"first {first * 1e3:.3f} ms, warm {dt * 1e3:.3f} ms"
+        print(f"{label} [{dist}]: distribution {got_dist}, {times}, single-device warm "
+              f"{single[single_label] * 1e3:.3f} ms [{card}]", flush=True)
+
+    def verb_check(verb, warm, tag):
+        def call():
+            return getattr(df, verb)(a, b, device="cuda", partitions=PART_TARGET)
+
+        def same(out):
+            want = verb_want[verb]
+            cols = ("count", "bases") if verb == "coverage" else ("count",)
+            if out.num_rows != want.num_rows or not all(
+                    np.array_equal(out.column_np(c), want.column_np(c)) for c in cols):
+                fail(f"{tag}{verb} with partitions={PART_TARGET} differs from the "
+                     "single-device verb")
+        out, first = timed(torch, call)
+        same(out)
+        times = f"one run {first * 1e3:.3f} ms"
+        if warm:
+            out, dt = timed(torch, call)
+            same(out)
+            times = f"first {first * 1e3:.3f} ms, warm {dt * 1e3:.3f} ms"
+        print(f"{tag}{verb} partitions={PART_TARGET}: equal to the single-device verb, "
+              f"{times}, single-device warm {single[verb] * 1e3:.3f} ms [{card}]", flush=True)
+
+    one_part = mesh.shape["part"] <= 1
+    t_phase = time.perf_counter()
+    launches = reset_launches()
+    for dist in PART_DISTS:
+        # auto takes hash on a 1-part mesh; nearest has no shuffle program
+        want = "hash" if dist == "auto" and one_part else None if dist == "auto" else dist
+        for pair, expected in (("chr1", CHR1_EXPECTED), ("genome", GENOME_EXPECTED)):
+            timed_pair(f"count {pair}", dist, session(pair, dist),
+                       lambda c: count(c, bd.QUERY), check_count(expected), f"count {pair}", want)
+        ctx = session("mat", dist)
+        timed_pair("select * 15M", dist, ctx, lambda c: c.sql(SELECT_STAR), check_select,
+                   "select * 15M", want)
+        ctx.sql(f"SET sequila.max_output_batch_size = {STREAM_BATCH}")
+        out, dt = timed(torch, lambda: batches(ctx))
+        check_batches(out)
+        print(f"sql_batches select * 15M [{dist}]: {out[0]} rows, checksum equal to the host "
+              f"route's, one run {dt * 1e3:.3f} ms [{card}]", flush=True)
+        ctx = session("nearest", dist)
+        ctx.sql("SET sequila.interval_join_algorithm TO CoitreesNearest")
+        timed_pair("nearest", dist, ctx, lambda c: c.sql(SELECT_STAR), check_nearest("nearest"),
+                   "nearest", "hash" if dist == "shuffle" else want, warm=dist != "shuffle")
+        timed_pair("grouped count", dist, session("genome", dist),
+                   lambda c: c.sql(GROUPED_QUERY), check_grouped, "grouped count", "hash only",
+                   warm=dist == "hash")
+    # the verbs take partitions= and no distribution
+    verb_check("count_overlaps", True, "")
+    verb_check("coverage", False, "")
+    t_engine = time.perf_counter() - t_phase
+
+    # every multi-shard path on the one card: the same checks over a
+    # (2, 2) mesh of the card repeated, put where the operator and the
+    # verbs take their mesh from
+    card4 = make_mesh([torch.device("cuda", 0)] * PART_TARGET)
+    print(f"the card repeated: {card4}", flush=True)
+    engine_mesh = engine.get_engine_mesh
+    engine.get_engine_mesh = lambda target, device: card4 if target > 1 else None
+    try:
+        for dist in PART_DISTS:
+            want = None if dist == "auto" else dist
+            for pair, expected in (("chr1", CHR1_EXPECTED), ("genome", GENOME_EXPECTED)):
+                timed_pair(f"card x4: count {pair}", dist, session(pair, dist),
+                           lambda c: count(c, bd.QUERY), check_count(expected), f"count {pair}",
+                           want, warm=False)
+            if dist == "auto":
+                continue
+            timed_pair("card x4: select * 15M", dist, session("mat", dist),
+                       lambda c: c.sql(SELECT_STAR), check_select, "select * 15M", want,
+                       warm=False)
+            if dist == "shuffle":
+                continue
+            for pair, label in (("nearest", "nearest"), ("chr1", "nearest chr1")):
+                ctx = session(pair, dist)
+                ctx.sql("SET sequila.interval_join_algorithm TO CoitreesNearest")
+                timed_pair(f"card x4: {label}", dist, ctx, lambda c: c.sql(SELECT_STAR),
+                           check_nearest(label), label, want, warm=False)
+        verb_check("count_overlaps", False, "card x4: ")
+    finally:
+        engine.get_engine_mesh = engine_mesh
+    torch.cuda.synchronize()
+    ran = launches()
+    if any(ran.values()):
+        fail(f"Partitioned mode launched a hand kernel: {ran}")
+    print(f"Partitioned mode: every check passed in {time.perf_counter() - t_phase:.1f} s "
+          f"({t_engine:.1f} s on the engine's mesh); hand-kernel launches {ran}", flush=True)
+
+    # each shard's bounds by both rank strategies, at the genome count shape
+    c1, c2 = joint_codes(t1, t2)
+    cols = [np.ascontiguousarray(x, np.int32) for x in
+            (c1, t1["pos_start"], t1["pos_end"], c2, t2["pos_start"], t2["pos_end"])]
+    _, meta, didx, dq, _ = pj._partitioned_inputs(mesh, *cols)
+    ms, bounds = {}, {}
+    for strategy in ("sort", "bsearch"):
+        os.environ["SEQUILA_MESH_BOUNDS"] = strategy
+        bounds[strategy] = pj.shard_bounds(mesh, meta, didx, dq)
+        ms[strategy] = time_events(torch, lambda: pj.shard_bounds(mesh, meta, didx, dq),
+                                   BOUNDS_REPS) / mesh.size
+    os.environ.pop("SEQUILA_MESH_BOUNDS", None)
+    for key, (lb, ub) in bounds["sort"].items():
+        lb2, ub2 = bounds["bsearch"][key]
+        if not (torch.equal(lb, lb2) and torch.equal(ub, ub2)):
+            fail(f"shard {key}: sort and bsearch bounds differ")
+    winner = min(ms, key=ms.get)
+    print(f"per-shard bounds at the genome count shape ({meta['num_levels']} levels, "
+          f"{dq[0, 0][0].numel()} probe slots): sort {ms['sort']:.3f} ms, bsearch "
+          f"{ms['bsearch']:.3f} ms, equal bounds; faster: {winner}, CUDA default: "
+          f"{pj._CUDA_BOUNDS} [{card}]", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -1853,6 +2108,7 @@ def main() -> None:
     os.environ.pop("SEQUILA_HOST_THRESHOLD", None)
     phase_q1()
     phase_q2()
+    phase_partitioned(torch, sessions, mat_ctx, mat_expected, mat_ref, card)
     if "jax" in sys.modules:
         fail("the port imported jax")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -21,7 +21,9 @@ the kernels' plain versions run).  count_overlaps and coverage run the
 merge backend's rank passes (ops/cuda/merge_count: one B1 launch for both
 count passes, one for coverage's four ranks); the others run the level
 index's torch ops on the device route.  ``partitions > 1`` (Partitioned
-mode) is not ported yet and raises (ROADMAP.md A9).
+mode) runs overlap, count_overlaps, coverage, map_overlaps and window as
+shard programs over a mesh of the verb's device type (parallel/), as the
+JAX package runs them over its mesh.
 """
 
 from __future__ import annotations
@@ -47,13 +49,12 @@ def _device(device) -> torch.device:
     return _resolve_device(device)
 
 
-def _single_chip(partitions: int) -> None:
-    """Partitioned mode (partitions > 1) is not ported: raise, never run
-    single-chip in its place."""
-    if partitions > 1:
-        from sequila_tpu_torch.exec.joins.interval_join import _not_ported
+def _mesh(partitions: int, device: torch.device):
+    """Engine mesh on ``device``'s type for partitions > 1, else None (the
+    single-device path)."""
+    from sequila_tpu_torch.parallel.engine import get_engine_mesh
 
-        raise _not_ported(f"Partitioned mode (partitions={partitions})", "A9")
+    return get_engine_mesh(partitions, device)
 
 
 def _use_host(*tables) -> bool:
@@ -228,10 +229,18 @@ def _encode_pair(entry: dict):
     return tuple(entry[k] for k in ("ca", "sa", "ea", "cb", "sb", "eb"))
 
 
-def _gather_pairs(a, b, ca, sa, ea, entry):
-    """All matching (b_row, a_row) index pairs, dispatched over the
-    host-index / device paths (shared by every pair-materializing verb);
-    both emit probe-major."""
+def _gather_pairs(a, b, ca, sa, ea, entry, partitions: int):
+    """All matching (b_row, a_row) index pairs, dispatched over the mesh /
+    host-index / device paths (shared by every pair-materializing verb).
+    Mesh results are normalized to (probe asc, build asc) order; the host
+    and device paths emit probe-major already."""
+    mesh = _mesh(partitions, entry["device"])
+    if mesh is not None:
+        from sequila_tpu_torch.parallel.partitioned_join import partitioned_pairs
+
+        b_rows, p_rows = partitioned_pairs(mesh, entry["cb"], entry["sb"], entry["eb"], ca, sa, ea)
+        order = np.lexsort((b_rows, p_rows))
+        return b_rows[order], p_rows[order]
     # materializing verbs route by the link-vs-host cost model: the pair
     # indices cross to the host either way (see materialize_route_host)
     from sequila_tpu_torch.exec.joins.interval_join import materialize_route_host
@@ -261,13 +270,14 @@ def overlap(a: Table, b: Table, cols: tuple = DEFAULT_COLS, cols_b=None,
             device="cuda") -> Table:
     """Inner overlap join: all (a_row ++ b_row) pairs with equal contig and
     end-inclusive range overlap.  b is the build side, a the probe side
-    (probe order preserved)."""
+    (probe order preserved).
+
+    ``partitions > 1`` executes over a device mesh."""
     dev = _device(device)
-    _single_chip(partitions)
     cols_b = cols_b or cols
     entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col, dev)
     ca, sa, ea, _, _, _ = _encode_pair(entry)
-    b_rows, p_rows = _gather_pairs(a, b, ca, sa, ea, entry)
+    b_rows, p_rows = _gather_pairs(a, b, ca, sa, ea, entry, partitions)
     return _pairs_to_table(a, b, p_rows, b_rows)
 
 
@@ -302,13 +312,20 @@ def count_overlaps(a: Table, b: Table, cols: tuple = DEFAULT_COLS, cols_b=None,
                    device="cuda") -> Table:
     """a with an appended per-row count of overlapping b intervals — the
     intended semantics of the reference's CoitreesCountOverlaps algorithm
-    (see SURVEY.md §2 item 9) and of superintervals `count`."""
+    (see SURVEY.md §2 item 9) and of superintervals `count`.
+
+    ``partitions > 1`` executes over a device mesh (the engine's
+    Partitioned mode; shrinks to the available devices)."""
     dev = _device(device)
-    _single_chip(partitions)
     cols_b = cols_b or cols
     entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col, dev)
-    ca, sa, ea, _, sb, eb = _encode_pair(entry)
-    if _route_perprobe_host(a, b, entry):
+    ca, sa, ea, cb, sb, eb = _encode_pair(entry)
+    mesh = _mesh(partitions, dev)
+    if mesh is not None:
+        from sequila_tpu_torch.parallel.partitioned_join import partitioned_probe_counts
+
+        counts = partitioned_probe_counts(mesh, cb, sb, eb, ca, sa, ea)
+    elif _route_perprobe_host(a, b, entry):
         counts = np.asarray(_pair_host_index(entry).counts(ca, sa, ea))
     else:
         counts = None
@@ -433,13 +450,19 @@ def coverage(a: Table, b: Table, cols: tuple = DEFAULT_COLS, cols_b=None,
              device="cuda") -> Table:
     """a with appended (count, bases) of b-coverage per a interval —
     superintervals `coverage` semantics (reference superintervals.rs:802:
-    bases = sum(min(end_i,qe) - max(start_i,qs)))."""
+    bases = sum(min(end_i,qe) - max(start_i,qs))).
+
+    ``partitions > 1`` executes over a device mesh."""
     dev = _device(device)
-    _single_chip(partitions)
     cols_b = cols_b or cols
     entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col, dev)
     ca, sa, ea, cb, sb, eb = _encode_pair(entry)
-    if _route_perprobe_host(a, b, entry):
+    mesh = _mesh(partitions, dev)
+    if mesh is not None:
+        from sequila_tpu_torch.parallel.partitioned_join import partitioned_coverage
+
+        counts, bases = partitioned_coverage(mesh, cb, sb, eb, ca, sa, ea)
+    elif _route_perprobe_host(a, b, entry):
         hidx = _pair_host_index(entry)
         if hasattr(hidx, "coverage"):
             counts, bases = hidx.coverage(ca, sa, ea)
@@ -496,11 +519,10 @@ def map_overlaps(a: Table, b: Table, column: str, ops=("mean",),
     count/sum/mean/min/max/median/collapse/distinct; empty groups yield
     NULL (count 0).  Output columns are named ``<column>_<op>``."""
     dev = _device(device)
-    _single_chip(partitions)
     cols_b = cols_b or cols
     entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col, dev)
     ca, sa, ea, _, _, _ = _encode_pair(entry)
-    b_rows, p_rows = _gather_pairs(a, b, ca, sa, ea, entry)
+    b_rows, p_rows = _gather_pairs(a, b, ca, sa, ea, entry, partitions)
     vals = b.column_np(column)[np.asarray(b_rows, np.int64)]
     agg = genomic.map_aggregate(p_rows, vals, a.num_rows, ops)
     t = a.arrow
@@ -540,7 +562,6 @@ def window(a: Table, b: Table, window: int = 0, left: int | None = None,
     output keeps a's original coordinates — only the match predicate is
     widened."""
     dev = _device(device)
-    _single_chip(partitions)
     cols_b = cols_b or cols
     lw = window if left is None else left
     rw = window if right is None else right
@@ -549,7 +570,7 @@ def window(a: Table, b: Table, window: int = 0, left: int | None = None,
     lim = np.int64(2**31)
     sa2 = np.clip(np.asarray(sa, np.int64) - lw, -lim, lim - 1).astype(np.int32)
     ea2 = np.clip(np.asarray(ea, np.int64) + rw, -lim, lim - 1).astype(np.int32)
-    b_rows, p_rows = _gather_pairs(a, b, ca, sa2, ea2, entry)
+    b_rows, p_rows = _gather_pairs(a, b, ca, sa2, ea2, entry, partitions)
     return _pairs_to_table(a, b, p_rows, b_rows)
 
 

@@ -36,8 +36,10 @@ kernels' plain PyTorch versions run only when that device is the CPU):
   row a probe row (ops/interval_join.nearest_match), recorded as
   ``nearest_route_<host|device>``.
 
-Partitioned mode raises NotImplementedError naming its ROADMAP.md item;
-it is not rerouted quietly.
+- Partitioned mode (``target_partitions > 1``) runs every path above as
+  shard programs over a (part, probe) mesh of the operator's device type
+  (parallel/), routed per query to hash, shuffle or skew distribution as
+  the JAX package routes it and recorded as ``distribution_<name>``.
 
 Semantics parity contract:
 - end-inclusive i32 intervals; strict </> already normalized to `end - 1`
@@ -159,12 +161,6 @@ def materialize_route_host(n: int, m: int) -> bool:
     host_cost = 14e-9 * n * math.log2(max(n, 2)) + 140e-9 * m
     device_cost = 2 * rtt + (4.0 * m + 8.0 * 2 * m) / bw + _DEVICE_INDEX_S * n
     return host_cost <= device_cost
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to sequila_tpu_torch yet (ROADMAP.md {item})"
-    )
 
 
 def _eval_keys(exprs: list[PhysicalExpr], table: Table) -> list:
@@ -870,21 +866,175 @@ class IntervalJoinExec(ExecPlan):
             hidx = make_host_index(*index)
         return hidx, rcodes, rs, re
 
-    # -- execution ----------------------------------------------------------
-    def _check_collect_left(self):
-        if self.mode == "Partitioned":
-            raise _not_ported("Partitioned mode (target_partitions > 1)", "A9")
+    # -- partitioned (mesh) execution ---------------------------------------
+    def _partitioned_mesh(self, ctx):
+        """The execution mesh when this node was planned in Partitioned
+        mode (reference PartitionMode::Partitioned + required
+        HashPartitioned distribution, interval_join.rs:385-404), on the
+        operator's device type; None for CollectLeft execution."""
+        if self.mode != "Partitioned":
+            return None
+        from sequila_tpu_torch.parallel.engine import get_engine_mesh
 
+        return get_engine_mesh(ctx.config.target_partitions, self.device)
+
+    @staticmethod
+    def _data_flags(lcodes, ls, le, rcodes, rs, re):
+        """(codes_nonneg, probes_nondegenerate, builds_noninverted) — the
+        preconditions of the skew rank arithmetic (all three) and the
+        shuffle BITS count (the last two)."""
+        nonneg = not bool((lcodes < 0).any()) and not bool((rcodes < 0).any())
+        nondeg = not bool((rs > re).any())
+        noninv = not bool((le < ls).any())
+        return nonneg, nondeg, noninv
+
+    def _choose_distribution(self, mesh, lcodes, ls, le, rcodes, rs, re, op: str) -> str:
+        """Resolve the Partitioned-mode distribution for this execution, by
+        the JAX package's rule.
+
+        The reference's Partitioned mode hash-distributes both sides
+        (interval_join.rs:385-404); `auto` routes each query to skew-aware
+        range splitting when one key dominates the weight histogram (the
+        plan_partitions criterion, parallel/skew.py), the device-to-device
+        shuffle otherwise, and host hash partitioning for shapes the
+        other two cannot take.  `op` is 'pairs', 'count' or 'nearest': the
+        shuffle COUNT is BITS-based and needs non-degenerate probes and
+        non-inverted builds, the shuffle PAIRS emission is the
+        max-extension window — exact for every shape — and NEAREST has no
+        shuffle program (it routes skew when hot, hash otherwise)."""
+        nonneg, nondeg, noninv = self._data_flags(lcodes, ls, le, rcodes, rs, re)
+        skew_ok = nonneg and nondeg and noninv
+        shuffle_ok = (nondeg and noninv) if op == "count" else op != "nearest"
+        cfg = self.distribution
+        if cfg == "skew":
+            return "skew" if skew_ok else "hash"
+        if cfg == "shuffle":
+            return "shuffle" if shuffle_ok else "hash"
+        if cfg == "hash":
+            return "hash"
+        npart = mesh.shape["part"]
+        if npart <= 1:
+            # degenerate 1-partition mesh: an exchange buys nothing, and
+            # host hash partitioning is CollectLeft-shaped
+            return "hash"
+        if nonneg and len(lcodes) and len(rcodes):
+            num = int(max(lcodes.max(), rcodes.max())) + 1
+            wb = np.bincount(lcodes, minlength=num).astype(np.int64)
+            wp = np.bincount(rcodes, minlength=num).astype(np.int64)
+            w = wb + wp
+            hot = int(np.argmax(w))
+            if w[hot] > 1.5 * int(w.sum()) / npart and wp[hot] > npart and skew_ok:
+                return "skew"
+        return "shuffle" if shuffle_ok else "hash"
+
+    def _execute_partitioned(self, ctx, mesh, left: Table, right: Table):
+        """Materializing join (or nearest) over the mesh, distribution-
+        routed: hash-partitioned build + 2-D split probe, the shuffle, or
+        skew-aware range splitting (reference interval_join.rs:459-510)."""
+        from sequila_tpu_torch.parallel.partitioned_join import partitioned_nearest
+        from sequila_tpu_torch.parallel.skew import skew_partitioned_nearest
+
+        (lcodes, ls, le), rcodes, rs, re = self._prepare(ctx, left, right, build_index=False)
+        m = right.num_rows
+        with ctx.timer(self.op_id(), "join_time"):
+            if self.algorithm.is_nearest:
+                dist = self._choose_distribution(mesh, lcodes, ls, le, rcodes, rs, re, "nearest")
+                ctx.metrics.add(self.op_id(), f"distribution_{dist}")
+                # hot contigs range-split; boundary fringe replication
+                # keeps the canonical pick exact (parallel/skew.py)
+                nearest = skew_partitioned_nearest if dist == "skew" else partitioned_nearest
+                rows = nearest(mesh, lcodes, ls, le, rcodes, rs, re)
+                null_mask = rows < 0
+                out = self._assemble(
+                    left, right, np.where(null_mask, 0, rows),
+                    np.arange(m, dtype=np.int64), left_null=null_mask,
+                )
+            else:
+                b, p = self._partitioned_pairs_ordered(
+                    ctx, mesh, lcodes, ls, le, rcodes, rs, re,
+                    empty=left.num_rows == 0 or m == 0,
+                )
+                if self.join_type == "inner":
+                    out = self._assemble(left, right, b, p)
+                else:
+                    out = finish_join(self.join_type, left, right, b, p)
+        ctx.metrics.add(self.op_id(), "output_rows", out.num_rows)
+        ctx.metrics.add(self.op_id(), "input_rows", m)
+        return out
+
+    def _partitioned_pairs_ordered(self, ctx, mesh, lcodes, ls, le, rcodes, rs, re, empty: bool):
+        """Distribution-routed pair materialization over the mesh, with
+        the probe-side order restored — (build_rows, probe_rows) int64."""
+        from sequila_tpu_torch.exec.plan import _fast_lexsort
+        from sequila_tpu_torch.parallel.engine import get_flat_mesh
+        from sequila_tpu_torch.parallel.partitioned_join import partitioned_pairs
+        from sequila_tpu_torch.parallel.shuffle import all_to_all_partitioned_pairs
+        from sequila_tpu_torch.parallel.skew import skew_partitioned_pairs
+
+        if empty:
+            return np.empty(0, np.int64), np.empty(0, np.int64)
+        # low-memory mode drains shards through a capped buffer
+        chunk_limit = 4 * ctx.config.max_output_batch_size if self.low_memory else None
+        dist = self._choose_distribution(mesh, lcodes, ls, le, rcodes, rs, re, "pairs")
+        ctx.metrics.add(self.op_id(), f"distribution_{dist}")
+        if dist == "shuffle":
+            b, p = all_to_all_partitioned_pairs(
+                get_flat_mesh(mesh), lcodes, ls, le, rcodes, rs, re,
+                chunk_limit=chunk_limit or (1 << 22),
+            )
+        elif dist == "skew":
+            b, p = skew_partitioned_pairs(mesh, lcodes, ls, le, rcodes, rs, re,
+                                          chunk_limit=chunk_limit)
+        else:
+            b, p = partitioned_pairs(mesh, lcodes, ls, le, rcodes, rs, re,
+                                     chunk_limit=chunk_limit)
+        # probe-side order restored (the probe order contract) by a STABLE
+        # sort on the probe row alone: a probe row's matches keep their
+        # shard-emission order, deterministic but not build-row-ascending
+        # (the reference compares sorted batches too)
+        order = _fast_lexsort((p,))
+        return b[order].astype(np.int64), p[order].astype(np.int64)
+
+    def _partitioned_count(self, ctx, mesh, left: Table, right: Table) -> int:
+        """count(*) over the mesh, distribution-routed: the hash level
+        counts, the shuffle's BITS sums, or the skew replica counts."""
+        from sequila_tpu_torch.parallel.engine import get_flat_mesh
+        from sequila_tpu_torch.parallel.partitioned_join import partitioned_count
+        from sequila_tpu_torch.parallel.shuffle import all_to_all_partitioned_count
+        from sequila_tpu_torch.parallel.skew import skew_partitioned_count_mesh
+
+        (lcodes, ls, le), rcodes, rs, re = self._prepare(ctx, left, right, build_index=False)
+        with ctx.timer(self.op_id(), "join_time"):
+            if left.num_rows == 0 or right.num_rows == 0:
+                total = 0
+            else:
+                dist = self._choose_distribution(mesh, lcodes, ls, le, rcodes, rs, re, "count")
+                ctx.metrics.add(self.op_id(), f"distribution_{dist}")
+                if dist == "skew":
+                    total = skew_partitioned_count_mesh(mesh, lcodes, ls, le, rcodes, rs, re)
+                elif dist == "shuffle":
+                    total = all_to_all_partitioned_count(
+                        get_flat_mesh(mesh), lcodes, ls, le, rcodes, rs, re
+                    )
+                else:
+                    total = partitioned_count(mesh, lcodes, ls, le, rcodes, rs, re)
+        ctx.metrics.add(self.op_id(), "output_rows", total)
+        return total
+
+    # -- execution ----------------------------------------------------------
     def execute(self, ctx):
         """Materializing join (inner or outer): the host route when
         ``materialize_route_host`` says so, else pairs from the device
         bounds, one output batch per emission chunk.  ``ctx.metrics``
         records the route that answered (``emit_route_<name>``: host,
         merge, or the rank strategy sort, bsearch or window).  Nearest
-        routes by ``nearest_route_host`` (``nearest_route_<host|device>``)."""
-        self._check_collect_left()
+        routes by ``nearest_route_host`` (``nearest_route_<host|device>``).
+        Partitioned mode runs over the mesh (``distribution_<name>``)."""
         left = self.children[0].execute(ctx)
         right = self.children[1].execute(ctx)
+        mesh = self._partitioned_mesh(ctx)
+        if mesh is not None:
+            return self._execute_partitioned(ctx, mesh, left, right)
         op = self.op_id()
         m = right.num_rows
         if self.algorithm.is_nearest:
@@ -963,14 +1113,27 @@ class IntervalJoinExec(ExecPlan):
         if self.algorithm.is_nearest or self.join_type != "inner":
             yield self.execute(ctx)
             return
-        self._check_collect_left()
         left = self.children[0].execute(ctx)
         right = self.children[1].execute(ctx)
         cap = max(4 * ctx.config.max_output_batch_size, 1)
         m = right.num_rows
         op = self.op_id()
         n_out = 0
-        if materialize_route_host(left.num_rows, m):
+        mesh = self._partitioned_mesh(ctx)
+        if mesh is not None:
+            # pair indices are computed whole (the global probe-order
+            # restore needs them all — 16 bytes a pair), but output
+            # assembly is sliced so the arrow result never materializes
+            # at once
+            (lcodes, ls, le), rcodes, rs, re = self._prepare(ctx, left, right, build_index=False)
+            with ctx.timer(op, "join_time"):
+                b, p = self._partitioned_pairs_ordered(
+                    ctx, mesh, lcodes, ls, le, rcodes, rs, re,
+                    empty=left.num_rows == 0 or m == 0,
+                )
+            gen = ((0, b[lo : lo + cap], p[lo : lo + cap]) for lo in range(0, len(b), cap))
+            outs = self._timed_assembled(ctx, left, right, gen)
+        elif materialize_route_host(left.num_rows, m):
             ctx.metrics.add(op, "emit_route_host")
             hidx, rcodes, rs, re = self._host_index(ctx, left, right)
             with ctx.timer(op, "join_time"):
@@ -1211,11 +1374,13 @@ class IntervalJoinExec(ExecPlan):
         """Exact output cardinality without materializing pairs — the
         count(*) fast path (the BITS-style count; every databio benchmark
         query is answerable by this alone)."""
-        self._check_collect_left()
         left = self.children[0].execute(ctx)
         right = self.children[1].execute(ctx)
         if self.algorithm.is_nearest:
             return right.num_rows
+        mesh = self._partitioned_mesh(ctx)
+        if mesh is not None:
+            return self._partitioned_count(ctx, mesh, left, right)
         op = self.op_id()
         if self._use_host(left, right):
             hidx, rcodes, rs, re = self._host_index(ctx, left, right)
@@ -1273,10 +1438,22 @@ class IntervalJoinExec(ExecPlan):
         which answers every shape.  ``ctx.metrics`` records the route that
         answered (``probe_count_route_<name>``).  with_table=True also
         returns the executed probe Table, so that callers
-        (GroupedIntervalCountExec) do not re-execute the subplan."""
-        self._check_collect_left()
+        (GroupedIntervalCountExec) do not re-execute the subplan.
+        Partitioned mode gives int64 counts from the mesh, as in the JAX
+        package."""
         left = self.children[0].execute(ctx)
         right = self.children[1].execute(ctx)
+        mesh = self._partitioned_mesh(ctx)
+        if mesh is not None:
+            from sequila_tpu_torch.parallel.partitioned_join import partitioned_probe_counts
+
+            (lcodes, ls, le), rcodes, rs, re = self._prepare(ctx, left, right, build_index=False)
+            if left.num_rows == 0 or right.num_rows == 0:
+                counts = np.zeros(right.num_rows, np.int64)
+            else:
+                with ctx.timer(self.op_id(), "join_time"):
+                    counts = partitioned_probe_counts(mesh, lcodes, ls, le, rcodes, rs, re)
+            return (counts, right) if with_table else counts
         counts = None
         if self._use_host(left, right):
             hidx, rcodes, rs, re = self._host_index(ctx, left, right)

@@ -37,8 +37,11 @@ level's maximum length.
 **Coverage view** (the level-free coverage decomposition of
 ops/genomic.coverage): the (key, start)- and (key, end)-sorted columns and
 the int64 exclusive prefix sums of their starts and ends, pad rows counted
-as 0.  The fixed ``layout`` of a partitioned build is not ported yet
-(ROADMAP.md A9).
+as 0.
+
+A partitioned build (parallel/partitioned_join.build_partitioned_index)
+re-pads each part's level view to one level layout shared by every part,
+as the JAX package's ``layout`` argument does.
 """
 
 from __future__ import annotations

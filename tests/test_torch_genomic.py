@@ -12,8 +12,8 @@ is the JAX package at its defaults; a few cases also run the JAX package
 on its own device route.  Ints and counts must be equal; pair verbs
 compare sorted rows; reldist, jaccard and the map_overlaps means and sums
 hold to rtol=1e-12 (sums taken in another order).  Partitioned mode
-(partitions > 1) raises naming A9, and a verb called with no device on a
-machine without CUDA raises.
+(partitions=2) equals the JAX package's over its virtual mesh, and a verb
+called with no device on a machine without CUDA raises.
 """
 
 import math
@@ -294,10 +294,15 @@ PARTITIONED = ["overlap", "count_overlaps", "coverage", "map_overlaps", "window"
 
 
 @pytest.mark.parametrize("verb", PARTITIONED)
-def test_partitioned_mode_raises_naming_a9(rng, verb):
+def test_partitioned_verb_equals_jax(rng, verb):
+    """Partitioned mode (partitions=2): the port's verb over its CPU mesh
+    equals the JAX package's over the virtual mesh."""
+    call, kind = PAIR_VERBS[verb]
     a, b = case_tables("random", rng)
-    with pytest.raises(NotImplementedError, match="A9"):
-        KERNEL_VERBS[verb](TorchTable(a), TorchTable(b), device="cpu", partitions=2)
+    want = call(jdf, JaxTable(a), JaxTable(b), partitions=2)
+    got = call(tdf, TorchTable(a), TorchTable(b), device="cpu", partitions=2)
+    assert_same(got, want, kind)
+    assert got.num_rows > 0
 
 
 @pytest.mark.parametrize("verb", sorted(KERNEL_VERBS))

@@ -6,8 +6,7 @@ missing keys, dense ties, probe larger and smaller than build), on the
 same arrow tables; counts compare exactly.  Shapes the merge plan declines
 take the co-sort and level routes in both packages and compare exactly;
 materialization, streaming, per-probe counts and nearest match the JAX
-package, and Partitioned mode, not ported yet, raises NotImplementedError
-naming its ROADMAP.md item instead of rerouting.
+package, and so do Partitioned mode's count, rows and streamed rows.
 """
 
 import numpy as np
@@ -209,11 +208,16 @@ def _rows(t):
     return list(zip(*cols))
 
 
+def _distributions(ctx):
+    return sorted(k for c in ctx.metrics.counters.values() for k in c
+                  if k.startswith("distribution_"))
+
+
 class TestOffSliceRoutesRaise:
-    """Routes off the ported slices raise NotImplementedError naming their
-    ROADMAP.md item (Partitioned mode, A9); materialization (A3),
-    streaming (A4), per-probe counts and nearest (A6) are ported and now
-    match the JAX package (the class keeps its name)."""
+    """Routes that once raised NotImplementedError naming their ROADMAP.md
+    item: materialization (A3), streaming (A4), per-probe counts and
+    nearest (A6) and Partitioned mode (A9) are ported and now match the
+    JAX package (the class keeps its name)."""
 
     def test_materialize_above_threshold(self, rng, monkeypatch):
         monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "0")
@@ -250,12 +254,25 @@ class TestOffSliceRoutesRaise:
             np.testing.assert_array_equal(got, want)
             assert want.sum() > 0
 
-    def test_partitioned_mode(self, rng):
-        tjoin, _, _ = _join("torch", *_tables(rng, 100, 100), mode="Partitioned")
-        for run in (tjoin.count_rows, tjoin.execute,
-                    lambda ctx: next(tjoin.execute_batches(ctx))):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
-                run(TorchCtx(TorchConfig()))
+    def test_partitioned_mode_equals_jax(self, rng):
+        """Partitioned mode at target_partitions=2: count_rows, execute and
+        execute_batches over the port's CPU mesh equal the JAX package's
+        over the virtual mesh, with the same distribution metric."""
+        lt, rt = _tables(rng, 100, 100)
+        jjoin, _, _ = _join("jax", lt, rt, mode="Partitioned")
+        tjoin, _, _ = _join("torch", lt, rt, mode="Partitioned")
+        runs = {
+            "count_rows": lambda join, ctx: join.count_rows(ctx),
+            "execute": lambda join, ctx: sorted(_rows(join.execute(ctx))),
+            "execute_batches": lambda join, ctx: sorted(
+                r for b in join.execute_batches(ctx) for r in _rows(b)),
+        }
+        for name, run in runs.items():
+            jctx = JaxCtx(SequilaConfig(target_partitions=2))
+            tctx = TorchCtx(TorchConfig(target_partitions=2))
+            want = run(jjoin, jctx)
+            assert run(tjoin, tctx) == want and want, name
+            assert _distributions(tctx) == _distributions(jctx) == ["distribution_hash"], name
 
     def test_nearest(self, rng, monkeypatch):
         """The nearest join (A6) is ported: one row a probe row, equal to
