@@ -134,7 +134,24 @@ Phases, each of which exits non-zero when it fails:
    ownership filter, the nearest fringe, LPT packing and the probe-order
    restore.  It fails if a hand kernel launched in the phase.  Last, each
    shard's level bounds by the 'sort' and 'bsearch' rank strategies,
-   equal and timed.
+   equal and timed;
+8. Partitioned mode across OS processes (parallel/distributed.py): the
+   script starts ranks of itself joined by one torch.distributed group,
+   8a two ranks on the one card over Gloo, 8b one rank a card
+   (torch.cuda.device_count() ranks) over NCCL.  Every rank holds the
+   global tables and runs, on sessions with ``target_partitions = 4`` (the
+   engine's mesh spans the ranks' cards, each shard owned by one rank),
+   the genome count(*) under hash, shuffle and skew (first and warm),
+   ``collect_left_count`` over that mesh, the 15M-row ``SELECT *`` under
+   each distribution (one run) and the grouped count (one run).  Every
+   rank must give 99,159,827, the host route's rows and checksum, and the
+   single-process grouped count's 24 groups, launch no hand kernel, and
+   agree with the other ranks; each time is printed with the share spent
+   in the collectives.  A rank that fails or runs past its timeout fails
+   the phase, and its peers are stopped.
+
+``python3 chip_smoke.py --multiprocess-only`` builds the references and
+runs phase 8b alone (for a call on several cards: one NCCL rank a card).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -147,6 +164,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -212,6 +230,11 @@ STRATEGIES = ("runs", "bounds", "emit")
 PART_TARGET = 4
 PART_DISTS = ("auto", "hash", "shuffle", "skew")
 BOUNDS_REPS = 3
+# phase 8: Partitioned mode across processes
+MP_SHAPES = (("8a", "gloo"), ("8b", "nccl"))
+MP_DISTS = ("hash", "shuffle", "skew")
+MP_TIMEOUT_S = 300  # one shape's ranks, start to end
+MP_COLLECTIVE_TIMEOUT_S = 120
 KERNELS = {  # name: (source, TPU kernel it replaces)
     "merge_rank_sorted": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:110"),
     # B1's level mode: every level's pair of Pallas launches in one
@@ -2073,7 +2096,188 @@ def phase_partitioned(torch, sessions, mat_ctx, mat_expected, mat_ref, card):
           f"{pj._CUDA_BOUNDS} [{card}]", flush=True)
 
 
-def main() -> None:
+def grouped_rows(out) -> list:
+    """The grouped count's (contig, count) rows, sorted."""
+    return sorted([str(c), int(n)] for c, n in zip(out.column_np(0), out.column_np(1)))
+
+
+def rank_checks(torch, spec) -> dict:
+    """One rank's phase-8 work; its results are the same on every rank but
+    for the times."""
+    import pyarrow as pa
+
+    from sequila_tpu_torch import bench_data as bd
+    from sequila_tpu_torch.parallel import distributed, engine
+    from sequila_tpu_torch.parallel import partitioned_join as pj
+    from sequila_tpu_torch.session import SessionContext
+
+    launches = reset_launches()
+    data = np.load(spec["data"])
+    genome = [{c: data[f"{n}_{c}"] for c in ("contig", "pos_start", "pos_end")}
+              for n in ("s1", "s2")]
+    (n, seed_l), (m, seed_r) = MAT_PAIR
+    tables = {"genome": [pa.table(t) for t in genome],
+              "mat": [pa.table(bd.gen_chain_table(n, seed_l)), pa.table(bd.gen_chain_table(m, seed_r))]}
+    mesh = engine.get_engine_mesh(PART_TARGET, "cuda")
+    res = {"mesh": repr(mesh), "count": {}, "distribution": {}, "select": {}, "ms": {},
+           "collective_ms": {}}
+
+    def session(pair, dist):
+        ctx = SessionContext(device="cuda")
+        for name, t in zip(("s1", "s2"), tables[pair]):
+            ctx.register_table(name, t)
+        ctx.sql(f"SET datafusion.execution.target_partitions = {PART_TARGET}")
+        ctx.sql(f"SET sequila.partitioned_distribution = {dist}")
+        return ctx
+
+    def run(label, fn):
+        torch.cuda.synchronize()
+        distributed.STATS.reset()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        res["ms"][label] = (time.perf_counter() - t0) * 1e3
+        res["collective_ms"][label] = distributed.STATS.seconds * 1e3
+        return out
+
+    for dist in MP_DISTS:
+        ctx = session("genome", dist)
+        res["count"][dist] = run(f"count genome {dist} first", lambda: count(ctx, bd.QUERY))
+        res["distribution"][dist] = distribution_of(ctx)
+        if run(f"count genome {dist} warm", lambda: count(ctx, bd.QUERY)) != res["count"][dist]:
+            fail(f"the warm genome count under {dist} differs from the first")
+        ctx = session("mat", dist)
+        res["select"][dist] = checksum([run(f"select * 15M {dist}", lambda: ctx.sql(SELECT_STAR))])
+    c1, c2 = joint_codes(*genome)
+    cols = [np.ascontiguousarray(x, np.int32) for x in
+            (c1, genome[0]["pos_start"], genome[0]["pos_end"],
+             c2, genome[1]["pos_start"], genome[1]["pos_end"])]
+    res["count"]["collect_left"] = run("collect_left_count genome",
+                                       lambda: pj.collect_left_count(mesh, *cols))
+    ctx = session("genome", "hash")
+    res["grouped"] = grouped_rows(run("grouped count", lambda: ctx.sql(GROUPED_QUERY)))
+    torch.cuda.synchronize()
+    res["launches"] = launches()
+    return res
+
+
+def rank_main(spec: dict) -> None:
+    """A phase-8 rank (``chip_smoke.py --rank <spec>``): join the group,
+    run rank_checks, print one ``RESULT`` JSON line."""
+    import torch
+
+    from sequila_tpu_torch.parallel import distributed
+
+    # Gloo ranks share card 0; an NCCL rank takes the card of its rank
+    device = "cuda:0" if spec["backend"] == "gloo" else "cuda"
+    distributed.initialize(spec["init"], spec["world"], spec["rank"], spec["backend"],
+                           device=device, timeout_s=MP_COLLECTIVE_TIMEOUT_S)
+    try:
+        res = rank_checks(torch, spec)
+    finally:
+        distributed.shutdown()
+    print("RESULT " + json.dumps(res), flush=True)
+
+
+def rank_results(world: int, backend: str, data: str, tmp: str, label: str) -> list[dict]:
+    """Start ``world`` ranks of this script and wait for them; fail, with
+    every rank stopped, if one fails or the ranks outlast MP_TIMEOUT_S."""
+    from sequila_tpu_torch.parallel.multihost_dryrun import run_ranks
+
+    init = f"file://{os.path.join(tmp, f'rendezvous_{label}')}"
+    specs = [{"rank": r, "world": world, "backend": backend, "init": init, "data": data}
+             for r in range(world)]
+    ranks = run_ranks([[sys.executable, os.path.abspath(__file__), "--rank", json.dumps(spec)]
+                       for spec in specs], MP_TIMEOUT_S)
+    if any(code or killed for code, _, killed in ranks):
+        for r, (code, log, killed) in enumerate(ranks):
+            print(f"--- {label} rank {r}: rc {code}{', stopped' if killed else ''} ---\n"
+                  f"{''.join(log)[-3000:]}", flush=True)
+        fail(f"phase {label}: a rank failed or outlasted {MP_TIMEOUT_S} s")
+    return [json.loads([ln for ln in log if ln.startswith("RESULT ")][-1][7:])
+            for _, log, _ in ranks]
+
+
+def phase_multiprocess(torch, genome, mat_ref, grouped_ref, card, shapes=MP_SHAPES):
+    print("== phase 8: Partitioned mode across processes (torch.distributed)", flush=True)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "genome.npz")
+        np.savez(data, **{f"{n}_{c}": v for n, t in zip(("s1", "s2"), genome)
+                          for c, v in t.items()})
+        for label, backend in shapes:
+            world = 2 if backend == "gloo" else torch.cuda.device_count()
+            t0 = time.perf_counter()
+            ranks = rank_results(world, backend, data, tmp, label)
+            wall = time.perf_counter() - t0
+            first = ranks[0]
+            print(f"{label}: {world} rank(s) over {backend}, {first['mesh']}", flush=True)
+            for r, res in enumerate(ranks):
+                tag = f"{label} rank {r}"
+                for name, got in res["count"].items():
+                    if got != GENOME_EXPECTED:
+                        fail(f"{tag}: genome count {got} under {name}, expected {GENOME_EXPECTED}")
+                for dist, got in res["distribution"].items():
+                    if got != dist:
+                        fail(f"{tag}: distribution {got}, expected {dist}")
+                for dist, got in res["select"].items():
+                    if tuple(got) != tuple(mat_ref):
+                        fail(f"{tag}: SELECT * under {dist}: (rows, checksum) {got} != host "
+                             f"route {mat_ref}")
+                if res["grouped"] != grouped_ref:
+                    fail(f"{tag}: the grouped count differs from the single-process run")
+                if any(res["launches"].values()):
+                    fail(f"{tag}: a hand kernel launched: {res['launches']}")
+                keys = ("mesh", "count", "distribution", "select", "grouped", "launches")
+                if any(res[k] != first[k] for k in keys):
+                    fail(f"{tag} disagrees with rank 0")
+            for name in first["ms"]:
+                ms = [res["ms"][name] for res in ranks]
+                coll = [res["collective_ms"][name] for res in ranks]
+                print(f"{label} {name}: " + ", ".join(
+                    f"rank {r} {t:.1f} ms (collectives {c:.1f} ms, {100 * c / t:.1f} %)"
+                    for r, (t, c) in enumerate(zip(ms, coll))) + f" [{card}]", flush=True)
+            print(f"{label}: every rank gave {GENOME_EXPECTED} under "
+                  f"{', '.join(first['count'])}, {mat_ref[0]} SELECT * rows with the host "
+                  f"route's checksum under {', '.join(first['select'])}, the 24 groups; hand-"
+                  f"kernel launches {first['launches']}; {wall:.1f} s", flush=True)
+    print(f"phase 8 passed in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def multiprocess_refs(genome_ctx, mat_ctx):
+    """Phase 8's references from this process, on the host route: the 15M
+    SELECT *'s (rows, checksum) and the grouped count's rows (phases 4f
+    and 5a hold the device routes equal to them)."""
+    os.environ["SEQUILA_HOST_THRESHOLD"] = HOST_ROUTE
+    try:
+        mat_ref = checksum([mat_ctx.sql(SELECT_STAR)])
+        grouped = grouped_rows(genome_ctx.sql(GROUPED_QUERY))
+    finally:
+        os.environ.pop("SEQUILA_HOST_THRESHOLD", None)
+    if len(grouped) != GENOME_CONTIGS or sum(n for _, n in grouped) != GENOME_EXPECTED:
+        fail(f"the single-process grouped count gave {grouped}")
+    return mat_ref, grouped
+
+
+def multiprocess_only(torch, card) -> None:
+    """Phase 8 alone, with its references built here."""
+    import pyarrow as pa
+
+    from sequila_tpu_torch import bench_data as bd
+    from sequila_tpu_torch.session import SessionContext
+
+    genome = (bd.gen_genome_table(bd.GENOME_LEFT, 21), bd.gen_genome_table(bd.GENOME_RIGHT, 22))
+    (n, seed_l), (m, seed_r) = MAT_PAIR
+    ctxs = []
+    for t1, t2 in (genome, (bd.gen_chain_table(n, seed_l), bd.gen_chain_table(m, seed_r))):
+        ctx = SessionContext(device="cuda")
+        ctx.register_table("s1", pa.table(t1))
+        ctx.register_table("s2", pa.table(t2))
+        ctxs.append(ctx)
+    phase_multiprocess(torch, genome, *multiprocess_refs(*ctxs), card, shapes=MP_SHAPES[1:])
+
+
+def main(only_multiprocess: bool = False) -> None:
     import torch
 
     if not torch.cuda.is_available():
@@ -2088,6 +2292,15 @@ def main() -> None:
     torch.cuda.set_device(dev)
     t_start = time.perf_counter()
     card = phase_toolchain(torch)
+    if only_multiprocess:
+        multiprocess_only(torch, card)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return
     phase_build()
     err = phase_kernels(torch, dev)
     sessions, merge_launches = phase_main_path(torch, card)
@@ -2109,6 +2322,10 @@ def main() -> None:
     phase_q1()
     phase_q2()
     phase_partitioned(torch, sessions, mat_ctx, mat_expected, mat_ref, card)
+    mp_mat_ref, grouped_ref = multiprocess_refs(sessions[1][1], mat_ctx)
+    if mp_mat_ref != mat_ref:
+        fail(f"the host route's SELECT * now gives {mp_mat_ref}, earlier {mat_ref}")
+    phase_multiprocess(torch, (sessions[1][3], sessions[1][4]), mat_ref, grouped_ref, card)
     if "jax" in sys.modules:
         fail("the port imported jax")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
@@ -2148,4 +2365,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(json.loads(sys.argv[2]))
+    else:
+        main(only_multiprocess=sys.argv[1:] == ["--multiprocess-only"])

@@ -798,7 +798,7 @@ class IntervalJoinExec(ExecPlan):
         # queries.  Plain-Column shapes only — complex exprs rebuild.
         def build():
             with ctx.timer(self.op_id(), "build_time"):
-                return build_interval_index(lcodes, ls, le, self.device)
+                return build_interval_index(lcodes, ls, le, device=self.device)
 
         cache_key = self._index_cache_key(left, right)
         if cache_key is None:

@@ -372,7 +372,7 @@ def subtract_intervals(ak, as_, ae, bk, bs, be, merged=None):
     )
 
 
-def jaccard(ak, as_, ae, bk, bs, be, device="cpu") -> dict:
+def jaccard(ak, as_, ae, bk, bs, be, *, device) -> dict:
     """Jaccard statistic of two interval sets (bedtools jaccard):
     |intersection bases| / |union bases| over the merged sets; the
     coverage of one merged set by the other runs on ``device``."""

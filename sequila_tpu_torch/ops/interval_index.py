@@ -126,7 +126,7 @@ class IntervalIndex:
       bs_keys/bs_starts/be_keys/be_ends — the BITS view, length bucket(n).
     """
 
-    def __init__(self, keys, starts, ends, device="cpu"):
+    def __init__(self, keys, starts, ends, *, device):
         self._hk = np.ascontiguousarray(keys, dtype=np.int32)
         self._hs = np.ascontiguousarray(starts, dtype=np.int32)
         self._he = np.ascontiguousarray(ends, dtype=np.int32)
@@ -327,7 +327,7 @@ class IntervalIndex:
 
 
 def build_interval_index(
-    keys: np.ndarray, starts: np.ndarray, ends: np.ndarray, device="cpu"
+    keys: np.ndarray, starts: np.ndarray, ends: np.ndarray, *, device
 ) -> IntervalIndex:
     """Build the (lazy) index from host arrays (int32 keys and i32 bounds),
     its views to live on the torch ``device``."""

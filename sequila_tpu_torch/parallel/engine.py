@@ -20,6 +20,13 @@ The mesh shrinks to the devices there are, as in the JAX package:
   without importing JAX, else 1.  Every shard then runs on the one host
   device, as JAX's virtual CPU devices share one host, so both packages
   build meshes of the same shape from the same environment.
+
+Once a process group is initialized (parallel/distributed.initialize),
+the mesh spans every process's devices: each rank contributes its local
+devices (on CUDA its own card, on the CPU its host devices), gathered in
+rank order as ``jax.devices()`` orders them, and each shard records the
+rank that owns it.  Every rank must then call ``get_engine_mesh`` in the
+same order, as every rank of a JAX program builds the same mesh.
 """
 
 from __future__ import annotations
@@ -29,7 +36,9 @@ import os
 import re
 
 import torch
+import torch.distributed as dist
 
+from sequila_tpu_torch.parallel import distributed
 from sequila_tpu_torch.parallel.mesh import Mesh, make_mesh
 
 
@@ -41,18 +50,31 @@ def host_device_count() -> int:
     return max(int(m.group(1)), 1) if m else 1
 
 
-def _devices(device: torch.device) -> tuple[torch.device, ...]:
-    """Every device of ``device``'s type, ``device`` first."""
-    if device.type == "cuda":
-        n = torch.cuda.device_count()
-        first = device.index if device.index is not None else torch.cuda.current_device()
-        return tuple(torch.device("cuda", (first + i) % n) for i in range(n))
-    return (device,) * host_device_count()
+def global_devices(device: torch.device) -> tuple[tuple, tuple]:
+    """(devices, owners): every process's devices of ``device``'s type in
+    rank order (this process's first when it is alone) and the rank that
+    owns each."""
+    local = distributed.local_devices(device)
+    world = distributed.world()
+    if world[1] == 1:
+        return local, (0,) * len(local)
+    return _gathered(local, world)
 
 
 @functools.lru_cache(maxsize=8)
-def _cached_mesh(devices: tuple, part: int | None) -> Mesh:
-    return make_mesh(devices, part=part)
+def _gathered(local: tuple, world: tuple[int, int]) -> tuple[tuple, tuple]:
+    """Every rank's ``local`` devices in rank order, with their owners: a
+    collective once per (local devices, world)."""
+    every = [None] * world[1]
+    dist.all_gather_object(every, [str(d) for d in local])
+    devs = tuple(torch.device(d) for names in every for d in names)
+    owners = tuple(r for r, names in enumerate(every) for _ in names)
+    return devs, owners
+
+
+@functools.lru_cache(maxsize=8)
+def _cached_mesh(devices: tuple, owners: tuple, part: int | None) -> Mesh:
+    return make_mesh(devices, part=part, owners=owners)
 
 
 def get_engine_mesh(target_partitions: int, device) -> Mesh | None:
@@ -61,13 +83,14 @@ def get_engine_mesh(target_partitions: int, device) -> Mesh | None:
     (target_partitions <= 1)."""
     if target_partitions <= 1:
         return None
-    devs = _devices(torch.device(device))
-    return _cached_mesh(devs[: min(target_partitions, len(devs))], None)
+    devs, owners = global_devices(torch.device(device))
+    n = min(target_partitions, len(devs))
+    return _cached_mesh(devs[:n], owners[:n], None)
 
 
 def get_flat_mesh(mesh: Mesh) -> Mesh:
-    """A 1-D ('part'=n, 'probe'=1) mesh over the same devices: the shuffle
-    exchanges over the 'part' axis only, so the flat layout gives it every
-    device as an exchange partner."""
+    """A 1-D ('part'=n, 'probe'=1) mesh over the same devices and owners:
+    the shuffle exchanges over the 'part' axis only, so the flat layout
+    gives it every device as an exchange partner."""
     devs = tuple(mesh.devices.reshape(-1))
-    return _cached_mesh(devs, len(devs))
+    return _cached_mesh(devs, tuple(int(o) for o in mesh.owners.reshape(-1)), len(devs))

@@ -11,12 +11,15 @@ runs Partitioned mode as shard_map programs over a ('part', 'probe') mesh:
 - mesh axis 'probe': row-parallel split of the probe rows within each
   partition.
 
-The port keeps the axes and drives the shards from one process: a
-``Mesh`` is an array of ``torch.device``s shaped (part, probe), and a
-shard program is a plain function over tensors placed on its shard's
-device (parallel/partitioned_join.py).  Devices may repeat: a CPU mesh
-places every shard on the one host device, as JAX's virtual CPU devices
-share one host.
+The port keeps the axes: a ``Mesh`` is an array of ``torch.device``s
+shaped (part, probe) with the rank of the process that owns each shard,
+and a shard program is a plain function over tensors placed on its
+shard's device (parallel/partitioned_join.py).  Each process runs the
+shards it owns (``is_local``); a single-process mesh owns them all.  An
+owner cannot be read off its device: two processes sharing a card both
+hold ``cuda:0``, and every CPU shard is ``cpu``.  Devices may repeat: a
+CPU mesh places every shard on the one host device, as JAX's virtual CPU
+devices share one host.
 """
 
 from __future__ import annotations
@@ -24,17 +27,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sequila_tpu_torch.parallel.distributed import world
+
 
 class Mesh:
     """A (part, probe) array of torch devices with the JAX mesh's axis
-    names; ``devices[p, q]`` runs shard (p, q)."""
+    names; ``devices[p, q]`` runs shard (p, q) in process ``owners[p, q]``
+    (all 0 when ``owners`` is not given)."""
 
     axis_names = ("part", "probe")
 
-    def __init__(self, devices: np.ndarray):
+    def __init__(self, devices: np.ndarray, owners: np.ndarray | None = None):
         if devices.ndim != 2 or devices.size == 0:
             raise ValueError("a mesh is a non-empty (part, probe) array of devices")
+        if owners is None:
+            owners = np.zeros(devices.shape, np.int64)
+        if owners.shape != devices.shape:
+            raise ValueError(f"owners {owners.shape} do not match devices {devices.shape}")
         self.devices = devices
+        self.owners = owners
 
     @property
     def shape(self) -> dict:
@@ -47,16 +58,25 @@ class Mesh:
     def device(self, part: int, probe: int = 0) -> torch.device:
         return self.devices[part, probe]
 
+    def is_local(self, part: int, probe: int = 0) -> bool:
+        """Whether this process owns shard (part, probe)."""
+        return int(self.owners[part, probe]) == world()[0]
+
     def __repr__(self) -> str:
         names = [str(d) for d in self.devices.reshape(-1)]
-        return f"Mesh(part={self.shape['part']}, probe={self.shape['probe']}, devices={names})"
+        owners = self.owners.reshape(-1).tolist()
+        return (f"Mesh(part={self.shape['part']}, probe={self.shape['probe']}, "
+                f"devices={names}, owners={owners})")
 
 
-def make_mesh(devices, part: int | None = None) -> Mesh:
+def make_mesh(devices, part: int | None = None, owners=None) -> Mesh:
     """A (part, probe) mesh over ``devices``, with the JAX package's
     squarest split (the largest part <= sqrt(n) dividing n) unless ``part``
-    is given."""
+    is given; ``owners`` names each device's process (all 0 by default)."""
     devs = list(devices)
+    owners = [0] * len(devs) if owners is None else list(owners)
+    if len(owners) != len(devs):
+        raise ValueError(f"{len(owners)} owners for {len(devs)} devices")
     n = len(devs)
     if part is None:
         part = 1
@@ -68,4 +88,4 @@ def make_mesh(devices, part: int | None = None) -> Mesh:
     grid = np.empty((part, probe), dtype=object)
     for i, d in enumerate(devs[: part * probe]):
         grid[i // probe, i % probe] = torch.device(d)
-    return Mesh(grid)
+    return Mesh(grid, np.asarray(owners[: part * probe], np.int64).reshape(part, probe))

@@ -8,18 +8,26 @@ probe rows additionally row-split over mesh axis 'probe' (so every
 (part, probe) shard owns one build partition x one probe slice).
 Per-part indexes share one level layout, as in the JAX package; key
 disjointness makes per-shard counts sum exactly to the global count.
-(CollectLeft is the operator's single-device execution.)
+(CollectLeft is the operator's single-device execution;
+``collect_left_count`` is its mesh form: a replicated build, the probe
+rows split over every shard.)
 
-The JAX package runs each program as one shard_map.  Here one process
-drives the shards: a shard program is a plain function over the tensors
-placed on its shard's device (``Mesh.device(part, probe)``), ``psum`` is
-an int64 sum in the controller (the JAX package's 8-row int32 partials
-were a TPU workaround), and ``fetch_global`` stacks the shards' results
-on the host.  The shards' work is enqueued device by device before any
-result is read, so shards on different cards overlap.  Host-side hash
-partitioning is, as in the JAX package, the single-host stand-in for the
-distributed shuffle (parallel/shuffle.py is the exchange between
-devices).
+The JAX package runs each program as one shard_map.  Here each process
+drives the shards it owns (``Mesh.is_local``): a shard program is a plain
+function over the tensors placed on its shard's device
+(``Mesh.device(part, probe)``), ``psum`` sums the local shards in int64
+and all-reduces the sum over the processes (the JAX package's 8-row
+int32 partials were a TPU workaround), and ``fetch_global`` gathers every
+shard's result to every process's host.  As in the JAX package's
+multi-host convention, every process holds the global tables and places
+only its own shards; every process returns the same answer.  The shards'
+work is enqueued device by device before any result is read, so shards
+on different cards overlap.  Host-side hash partitioning is, as in the
+JAX package, the single-host stand-in for the distributed shuffle
+(parallel/shuffle.py is the exchange between devices).  A rank-local
+block of shard work runs under ``distributed.agree``, so a rank that
+raises makes every rank raise instead of leaving its peers waiting in a
+collective.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ from sequila_tpu_torch.ops.interval_index import (
     _bucket,
     build_interval_index,
 )
+from sequila_tpu_torch.parallel import distributed
+from sequila_tpu_torch.parallel.distributed import agree
 from sequila_tpu_torch.parallel.mesh import Mesh
 
 # Per-shard rank strategy on CUDA when SEQUILA_MESH_BOUNDS is unset: the
@@ -76,18 +86,38 @@ def _shard_bounds(ix, k, s, e, meta, strategy):
 
 
 def _shards(mesh: Mesh):
-    """(part, probe, device) of every shard, in mesh order."""
+    """(part, probe, device) of every shard this process owns, in mesh
+    order."""
     for p in range(mesh.shape["part"]):
         for q in range(mesh.shape["probe"]):
-            yield p, q, mesh.device(p, q)
+            if mesh.is_local(p, q):
+                yield p, q, mesh.device(p, q)
+
+
+def gather_shards(mesh: Mesh, per_shard: dict) -> dict:
+    """Every shard's tensor on this process's host ({(part, probe): cpu
+    tensor}, in mesh order) from ``per_shard``, which holds a tensor for
+    each local shard: the cross-process gather (sizes first, then one
+    padded all-gather), or the local tensors' host copies with no group."""
+    keys = [(p, q) for p in range(mesh.shape["part"]) for q in range(mesh.shape["probe"])]
+    pieces = distributed.gather_var(
+        [per_shard[p, q] for p, q, _ in _shards(mesh)], [int(mesh.owners[k]) for k in keys]
+    )
+    return dict(zip(keys, pieces))
 
 
 def fetch_global(mesh: Mesh, per_shard: dict) -> np.ndarray:
-    """The shards' results stacked on the host as [part, probe, ...]: the
-    concatenation that replaces the JAX package's fetch of a sharded
-    array."""
-    out = [per_shard[p, q].cpu().numpy() for p, q, _ in _shards(mesh)]
+    """Every shard's result stacked on the host as [part, probe, ...], on
+    every process: the gather that replaces the JAX package's fetch of a
+    sharded array."""
+    out = [t.numpy() for t in gather_shards(mesh, per_shard).values()]
     return np.stack(out).reshape(mesh.devices.shape + out[0].shape)
+
+
+def psum(values) -> int:
+    """The int64 sum of the local shards' scalars, all-reduced over the
+    processes."""
+    return distributed.all_reduce_sum(sum(int(v) for v in values))
 
 
 # ---------------------------------------------------------------------------
@@ -114,7 +144,7 @@ def build_partitioned_index(lk, ls, le, npart: int, part_of=None, keys=None):
     if keys is None:
         keys = lk
     parts = [np.nonzero(part_of == p)[0] for p in range(npart)]
-    views = [build_interval_index(keys[rows], ls[rows], le[rows], "cpu") for rows in parts]
+    views = [build_interval_index(keys[rows], ls[rows], le[rows], device="cpu") for rows in parts]
     num_levels = max(v.num_levels for v in views)
     layout = tuple(
         _bucket(max(1, max((v.level_sizes[i] if i < v.num_levels else 0) for v in views)))
@@ -167,22 +197,25 @@ def partition_probe(rk, rs, re, npart: int, nprobe: int, part_of=None, keys=None
 
 
 def place_index(mesh: Mesh, arrays: dict) -> dict:
-    """Part p's index fields as tensors on every device of mesh row p
-    ({(part, probe): {field: tensor}}); a device that repeats in the row
-    holds one copy."""
-    out = {}
+    """Part p's index fields as tensors on the device of every local shard
+    of mesh row p ({(part, probe): {field: tensor}}); ``arrays`` has one
+    row a part, or one row that every part shares (the replicated build).
+    A device that repeats holds one copy of a row."""
+    out, placed = {}, {}
     for p, q, dev in _shards(mesh):
-        same = next((out[p, j] for j in range(q) if mesh.device(p, j) == dev), None)
-        out[p, q] = same or {
-            name: torch.from_numpy(np.ascontiguousarray(a[p])).to(dev)
-            for name, a in arrays.items()
-        }
+        row = p if len(next(iter(arrays.values()))) > 1 else 0
+        if (row, dev) not in placed:
+            placed[row, dev] = {
+                name: torch.from_numpy(np.ascontiguousarray(a[row])).to(dev)
+                for name, a in arrays.items()
+            }
+        out[p, q] = placed[row, dev]
     return out
 
 
 def place_probe(mesh: Mesh, *arrays) -> dict:
-    """Shard (p, q)'s slice of each [npart, nprobe, M] array as a tensor on
-    its device ({(part, probe): tuple of tensors})."""
+    """Local shard (p, q)'s slice of each [npart, nprobe, M] array as a
+    tensor on its device ({(part, probe): tuple of tensors})."""
     return {
         (p, q): tuple(torch.from_numpy(np.ascontiguousarray(a[p, q])).to(dev) for a in arrays)
         for p, q, dev in _shards(mesh)
@@ -217,7 +250,9 @@ def shard_totals(mesh: Mesh, bounds: dict) -> np.ndarray:
     the single-device emit path's limit (_EMIT_LIMIT): emit_pairs' slot and
     offset arithmetic is int32, so a shard that would emit >= 2^31 pairs
     must be an error, never a silent wrap."""
-    sums = {k: ij.counts_from_bounds(lb, ub).sum(dtype=torch.int64) for k, (lb, ub) in bounds.items()}
+    with agree():
+        sums = {k: ij.counts_from_bounds(lb, ub).sum(dtype=torch.int64)
+                for k, (lb, ub) in bounds.items()}
     totals = fetch_global(mesh, sums).astype(np.int64)
     if totals.size and int(totals.max()) >= ij._EMIT_LIMIT:
         raise ExecutionError(
@@ -231,23 +266,35 @@ def shard_totals(mesh: Mesh, bounds: dict) -> np.ndarray:
 def emit_all_shards(mesh: Mesh, meta, didx, bounds, totals, chunk_limit: int | None = None):
     """Drain every shard's pairs through fixed-capacity emission.
 
-    Yields (part, probe, build_rows, probe_slots) per shard per chunk,
-    chunk-major as the JAX package's calls run, with invalid slots
-    stripped.  ``chunk_limit`` caps the per-shard buffer (low-memory
+    Yields (part, probe, build_rows, probe_slots) of every shard of the
+    mesh per chunk, on every process, chunk-major as the JAX package's
+    calls run, with invalid slots stripped.  Each process emits its local
+    shards; each chunk's pairs are then gathered to every process.
+    ``totals`` is every shard's (shard_totals), so every process runs the
+    same chunks.  ``chunk_limit`` caps the per-shard buffer (low-memory
     mode); None sizes it to the largest shard (one chunk)."""
     max_total = int(totals.max())
     cap = _bucket(max(1, min(max_total, chunk_limit) if chunk_limit else max_total), minimum=1024)
-    cells = {k: ij.pair_offsets(lb, ub) for k, (lb, ub) in bounds.items()}
+    with agree():
+        cells = {k: ij.pair_offsets(lb, ub) for k, (lb, ub) in bounds.items()}
     for base in range(0, max_total, cap):
-        for p, q, _ in _shards(mesh):
-            if totals[p, q] <= base:
-                continue
-            offsets, lb_pm = cells[p, q]
-            b, s, valid = ij.emit_pairs(
-                offsets, lb_pm, didx[p, q]["pos"], base, capacity=cap,
-                num_levels=meta["num_levels"], level_offsets=meta["level_offsets"],
-            )
-            yield p, q, b[valid].cpu().numpy(), s[valid].cpu().numpy()
+        local = {}
+        with agree():
+            for p, q, dev in _shards(mesh):
+                if totals[p, q] <= base:
+                    local[p, q] = torch.empty((0, 2), dtype=torch.int32)
+                    continue
+                offsets, lb_pm = cells[p, q]
+                b, s, valid = ij.emit_pairs(
+                    offsets, lb_pm, didx[p, q]["pos"], base, capacity=cap,
+                    num_levels=meta["num_levels"], level_offsets=meta["level_offsets"],
+                )
+                # each shard's chunk leaves the device before the next is
+                # emitted
+                local[p, q] = torch.stack((b[valid], s[valid]), 1).to(torch.int32).cpu()
+        for (p, q), pairs in gather_shards(mesh, local).items():
+            if len(pairs):
+                yield p, q, pairs[:, 0].numpy(), pairs[:, 1].numpy()
 
 
 def partitioned_pairs(mesh: Mesh, lk, ls, le, rk, rs, re, chunk_limit: int | None = None):
@@ -257,8 +304,9 @@ def partitioned_pairs(mesh: Mesh, lk, ls, le, rk, rs, re, chunk_limit: int | Non
     pairs — in fixed-capacity chunks when ``chunk_limit`` caps the buffer
     (low-memory mode); the host maps shard-local probe slots back to
     global rows.  Returns (build_rows, probe_rows)."""
-    _, meta, didx, dq, IDX = _partitioned_inputs(mesh, lk, ls, le, rk, rs, re)
-    bounds = shard_bounds(mesh, meta, didx, dq)
+    with agree():
+        _, meta, didx, dq, IDX = _partitioned_inputs(mesh, lk, ls, le, rk, rs, re)
+        bounds = shard_bounds(mesh, meta, didx, dq)
     totals = shard_totals(mesh, bounds)
     out_b, out_p = [], []
     for p, q, b_valid, s_valid in emit_all_shards(mesh, meta, didx, bounds, totals, chunk_limit):
@@ -278,19 +326,21 @@ def nearest_shards(mesh: Mesh, meta, didx, dq) -> np.ndarray:
     skew range splitting when the caller replicated the boundary fringe
     rows (parallel/skew.py:skew_partitioned_nearest)."""
     picks = {}
-    for (p, q), (lb, ub) in shard_bounds(mesh, meta, didx, dq).items():
-        ix = didx[p, q]
-        picks[p, q] = ij.nearest_from_bounds(
-            lb, ub, ix["levels"], ix["keys"], ix["starts"], ix["ends"], ix["pos"],
-            *dq[p, q], level_offsets=meta["level_offsets"], level_pad=meta["layout"],
-        )
+    with agree():
+        for (p, q), (lb, ub) in shard_bounds(mesh, meta, didx, dq).items():
+            ix = didx[p, q]
+            picks[p, q] = ij.nearest_from_bounds(
+                lb, ub, ix["levels"], ix["keys"], ix["starts"], ix["ends"], ix["pos"],
+                *dq[p, q], level_offsets=meta["level_offsets"], level_pad=meta["layout"],
+            )
     return fetch_global(mesh, picks)
 
 
 def partitioned_nearest(mesh: Mesh, lk, ls, le, rk, rs, re) -> np.ndarray:
     """Global nearest build row per probe row (-1 = key absent) over the
     (part, probe) mesh."""
-    _, meta, didx, dq, IDX = _partitioned_inputs(mesh, lk, ls, le, rk, rs, re)
+    with agree():
+        _, meta, didx, dq, IDX = _partitioned_inputs(mesh, lk, ls, le, rk, rs, re)
     res = nearest_shards(mesh, meta, didx, dq)
     out = np.full(len(rk), -1, np.int64)
     slot_rows = IDX.reshape(-1)
@@ -303,8 +353,10 @@ def partitioned_probe_counts(mesh: Mesh, lk, ls, le, rk, rs, re) -> np.ndarray:
     """Exact per-probe-row overlap counts over the mesh (int64 [m]):
     CountOverlaps / grouped-count semantics, exact for degenerate probes
     and inverted builds (the level bounds, not BITS)."""
-    _, meta, didx, dq, IDX = _partitioned_inputs(mesh, lk, ls, le, rk, rs, re)
-    counts = {k: ij.counts_from_bounds(lb, ub) for k, (lb, ub) in shard_bounds(mesh, meta, didx, dq).items()}
+    with agree():
+        _, meta, didx, dq, IDX = _partitioned_inputs(mesh, lk, ls, le, rk, rs, re)
+        counts = {k: ij.counts_from_bounds(lb, ub)
+                  for k, (lb, ub) in shard_bounds(mesh, meta, didx, dq).items()}
     res = fetch_global(mesh, counts).astype(np.int64)
     out = np.zeros(len(rk), np.int64)
     slot_rows = IDX.reshape(-1)
@@ -325,15 +377,16 @@ def coverage_rank_shards(mesh: Mesh, meta, didx, dq):
         def rank(*a, side):
             return ij.level_ranks(*a, side=side, **kw)
     out = ({}, {}, {}, {})
-    for p, q, _ in _shards(mesh):
-        ix = didx[p, q]
-        lv, ky, st, en = (ix[n] for n in ("levels", "keys", "starts", "ends"))
-        k, s, e = dq[p, q]
-        for o, r in zip(out, (rank(lv, ky, en, k, s, side="left"),
-                              rank(lv, ky, st, k, e, side="right"),
-                              rank(lv, ky, en, k, e, side="right"),
-                              rank(lv, ky, st, k, s, side="left"))):
-            o[p, q] = r
+    with agree():
+        for p, q, _ in _shards(mesh):
+            ix = didx[p, q]
+            lv, ky, st, en = (ix[n] for n in ("levels", "keys", "starts", "ends"))
+            k, s, e = dq[p, q]
+            for o, r in zip(out, (rank(lv, ky, en, k, s, side="left"),
+                                  rank(lv, ky, st, k, e, side="right"),
+                                  rank(lv, ky, en, k, e, side="right"),
+                                  rank(lv, ky, st, k, s, side="left"))):
+                o[p, q] = r
     return tuple(fetch_global(mesh, o) for o in out)
 
 
@@ -344,7 +397,9 @@ def partitioned_coverage(mesh: Mesh, lk, ls, le, rk, rs, re):
     npart, nprobe = mesh.shape["part"], mesh.shape["probe"]
     arrays, meta = build_partitioned_index(lk, ls, le, npart)
     K, S, E, IDX = partition_probe(rk, rs, re, npart, nprobe)
-    LB, UB, T, R = coverage_rank_shards(mesh, meta, place_index(mesh, arrays), place_probe(mesh, K, S, E))
+    with agree():
+        placed = place_index(mesh, arrays), place_probe(mesh, K, S, E)
+    LB, UB, T, R = coverage_rank_shards(mesh, meta, *placed)
     out_c = np.zeros(len(rk), np.int64)
     out_b = np.zeros(len(rk), np.int64)
     for part in range(npart):
@@ -376,8 +431,24 @@ def partitioned_coverage(mesh: Mesh, lk, ls, le, rk, rs, re):
 def partitioned_count(mesh: Mesh, lk, ls, le, rk, rs, re) -> int:
     """Exact pair count over the (part, probe) mesh: per-shard level counts
     summed in int64 (the psum)."""
-    _, meta, didx, dq, _ = _partitioned_inputs(mesh, lk, ls, le, rk, rs, re)
-    sums = [ij.counts_from_bounds(lb, ub).sum(dtype=torch.int64)
-            for lb, ub in shard_bounds(mesh, meta, didx, dq).values()]
-    return sum(int(x) for x in sums)
+    with agree():
+        _, meta, didx, dq, _ = _partitioned_inputs(mesh, lk, ls, le, rk, rs, re)
+        sums = [ij.counts_from_bounds(lb, ub).sum(dtype=torch.int64)
+                for lb, ub in shard_bounds(mesh, meta, didx, dq).values()]
+    return psum(sums)
+
+
+def collect_left_count(mesh: Mesh, lk, ls, le, rk, rs, re) -> int:
+    """CollectLeft over the mesh: one level index of the whole build,
+    replicated on every shard's device, the probe rows split over every
+    shard of the mesh, per-shard level counts psum'd in int64."""
+    arrays, meta = build_partitioned_index(lk, ls, le, 1)
+    K, S, E, _ = partition_probe(rk, rs, re, 1, mesh.size)
+    grid = mesh.devices.shape + (-1,)
+    with agree():
+        didx = place_index(mesh, arrays)
+        dq = place_probe(mesh, *(a.reshape(grid) for a in (K, S, E)))
+        sums = [ij.counts_from_bounds(lb, ub).sum(dtype=torch.int64)
+                for lb, ub in shard_bounds(mesh, meta, didx, dq).values()]
+    return psum(sums)
 

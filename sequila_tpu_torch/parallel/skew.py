@@ -21,8 +21,9 @@ Inside a sub-range [lo, hi) that rule reduces to rank arithmetic:
 with qe' = min(qe, hi-1).  One extra rank column versus plain BITS.
 
 The planning and replica assignment are host numpy, copied from the JAX
-package; the counts, pairs and nearest picks are shard programs over the
-mesh (parallel/partitioned_join.py).
+package, and every process runs them on the global tables; the counts,
+pairs and nearest picks are shard programs over the mesh, each process
+running its own shards (parallel/partitioned_join.py).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 from sequila_tpu_torch.ops.interval_index import _bucket
 from sequila_tpu_torch.ops.ranks import rank_lex_sort
 from sequila_tpu_torch.parallel import partitioned_join as pj
+from sequila_tpu_torch.parallel.distributed import agree
 from sequila_tpu_torch.parallel.mesh import Mesh
 
 
@@ -228,12 +230,13 @@ def skew_partitioned_count_mesh(mesh: Mesh, lk, ls, le, rk, rs, re) -> int:
             QLO[p, c, : len(sl)] = lo32[sl]
             QHI[p, c, : len(sl)] = hi32[sl]
 
-    # the build of part p on every device of mesh row p
-    builds = pj.place_probe(mesh, np.repeat(BK, nprobe, 1), np.repeat(BS, nprobe, 1),
-                            np.repeat(BE, nprobe, 1))
-    probes = pj.place_probe(mesh, QK, QS, QE, QLO, QHI)
-    sums = [counts_skew(*builds[k], *probes[k]).sum(dtype=torch.int64) for k in probes]
-    return sum(int(x) for x in sums)
+    with agree():
+        # the build of part p on every local device of mesh row p
+        builds = pj.place_probe(mesh, np.repeat(BK, nprobe, 1), np.repeat(BS, nprobe, 1),
+                                np.repeat(BE, nprobe, 1))
+        probes = pj.place_probe(mesh, QK, QS, QE, QLO, QHI)
+        sums = [counts_skew(*builds[k], *probes[k]).sum(dtype=torch.int64) for k in probes]
+    return pj.psum(sums)
 
 
 def _replica_inputs(mesh: Mesh, plan, b_sid, b_row, ls, le, q_sid, q_rows, rs, re):
@@ -266,8 +269,10 @@ def skew_partitioned_pairs(mesh: Mesh, lk, ls, le, rk, rs, re, chunk_limit=None)
     if len(b_sid) == 0 or len(q_sid) == 0:
         return np.empty(0, np.int64), np.empty(0, np.int64)
     # the index's pos maps to REPLICA indices (rows into b_sid/b_row)
-    meta, didx, dq, IDX = _replica_inputs(mesh, plan, b_sid, b_row, ls, le, q_sid, q_row, rs, re)
-    bounds = pj.shard_bounds(mesh, meta, didx, dq)
+    with agree():
+        meta, didx, dq, IDX = _replica_inputs(mesh, plan, b_sid, b_row, ls, le, q_sid, q_row,
+                                              rs, re)
+        bounds = pj.shard_bounds(mesh, meta, didx, dq)
     totals = pj.shard_totals(mesh, bounds)
     out_b, out_p = [], []
     for p, q, b_rep, p_slot in pj.emit_all_shards(mesh, meta, didx, bounds, totals, chunk_limit):
@@ -393,7 +398,9 @@ def skew_partitioned_nearest(mesh: Mesh, lk, ls, le, rk, rs, re) -> np.ndarray:
     out = np.full(len(rk), -1, np.int64)
 
     if len(q_sid) and len(b_sid):
-        meta, didx, dq, IDX = _replica_inputs(mesh, plan, b_sid, b_row, ls, le, q_sid, q_row, rs, re)
+        with agree():
+            meta, didx, dq, IDX = _replica_inputs(mesh, plan, b_sid, b_row, ls, le, q_sid,
+                                                  q_row, rs, re)
         # picks are REPLICA indices (the index's pos maps into the replica
         # row space) -> original rows via b_row
         res = pj.nearest_shards(mesh, meta, didx, dq)

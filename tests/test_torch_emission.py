@@ -43,7 +43,7 @@ def _data(rng, n, m, nkeys=3, span=5000, max_len=900, inverted=0.0, degenerate=0
 
 
 def _indexes(lk, ls, le):
-    return jii.build_interval_index(lk, ls, le), tii.build_interval_index(lk, ls, le)
+    return jii.build_interval_index(lk, ls, le), tii.build_interval_index(lk, ls, le, device="cpu")
 
 
 def _q(qk, qs, qe):

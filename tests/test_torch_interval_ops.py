@@ -51,7 +51,7 @@ def _probes(rng, m, nkeys=5, degenerate=0.0, span=20_000, pad=0):
 
 
 def _indexes(k, s, e):
-    return jidx.build_interval_index(k, s, e), tidx.build_interval_index(k, s, e, "cpu")
+    return jidx.build_interval_index(k, s, e), tidx.build_interval_index(k, s, e, device="cpu")
 
 
 BUILDS = {
@@ -83,6 +83,22 @@ def test_assign_levels_and_bucket_are_the_jax_ones(rng):
     for n in (0, 1, 8, 9, 1000, 65536, 65537, 10**6):
         assert tidx._bucket(n) == jidx._bucket(n)
         assert tidx._bucket(n, minimum=1024) == jidx._bucket(n, minimum=1024)
+
+
+@pytest.mark.parametrize("fn", ["IntervalIndex", "build_interval_index", "jaccard"])
+def test_device_is_required(rng, fn):
+    """The port's public functions run where the caller says: none of these
+    has a device default (the JAX package's land on the accelerator)."""
+    from sequila_tpu_torch.ops import genomic
+
+    k, s, e = _build(rng, 50)
+    call = {
+        "IntervalIndex": lambda: tidx.IntervalIndex(k, s, e),
+        "build_interval_index": lambda: tidx.build_interval_index(k, s, e),
+        "jaccard": lambda: genomic.jaccard(k, s, e, k, s, e),
+    }[fn]
+    with pytest.raises(TypeError, match="device"):
+        call()
 
 
 def _level_args(idx):
@@ -165,6 +181,6 @@ def test_counts_bits_fused_matches_jax(rng, degenerate):
     assert (total, n_deg) == (int(packed[:-1].sum()), int(packed[-1]))
     assert (n_deg > 0) == (degenerate > 0)
     if n_deg == 0:  # exact: the level index counts the same pairs
-        idx = tidx.build_interval_index(remap_l[lk], ls, le)
+        idx = tidx.build_interval_index(remap_l[lk], ls, le, device="cpu")
         want = tij.count_matches(idx, _t(remap_r[rk]), _t(rs), _t(re), "sort")
         assert total == int(want.sum())

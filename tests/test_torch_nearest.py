@@ -25,7 +25,7 @@ I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 def _both(bk, bs, be, qk, qs, qe):
     """(port nearest_match, JAX nearest_match) of one build and probe set."""
     arrs = [np.asarray(a, np.int32) for a in (bk, bs, be, qk, qs, qe)]
-    got = tij.nearest_match(tidx.build_interval_index(*arrs[:3]),
+    got = tij.nearest_match(tidx.build_interval_index(*arrs[:3], device="cpu"),
                             *(torch.from_numpy(a) for a in arrs[3:]))
     want = jij.nearest_match(jidx.build_interval_index(*(jnp.asarray(a) for a in arrs[:3])),
                              *(jnp.asarray(a) for a in arrs[3:]))
