@@ -105,12 +105,19 @@ Phases, each of which exits non-zero when it fails:
    default) and the device route (SEQUILA_HOST_THRESHOLD=0), from fresh
    tables; every count and covered-bases value equal to the native host
    index's (counts summing to 99,159,827); a warm device coverage launching
-   B1 once and pack_view 4 times, a warm count_overlaps B1 once and
-   pack_view twice, the host route nothing; first and warm times;
-   ``closest(k=3)``, ``subtract`` and ``merge`` timed at that shape; B1's
-   verb-mode launch (coverage's four rank passes as four segments) against
-   merge_verb_rank4_plain on the same inputs, timed as a bare launch beside
-   its bound and four torch.searchsorted calls with their scatters;
+   B1, pack_view 4 times and the un-permute once, a warm count_overlaps
+   B1 once and pack_view twice, the host route nothing; first and warm
+   times; ``closest(k=3)``, ``subtract`` and ``merge`` timed at that
+   shape; B1's verb mode: the launch through the orders split four ways
+   (build views packed on load or pre-packed, ranks through the orders or
+   direct), each against its plain version and timed; the redesigned
+   launch (coverage's four rank passes as four segments, ranks in view
+   order) against its plain version, the un-permute kernel against its
+   own, both together against merge_verb_rank4_plain and the native host
+   index's counts on every probe; each timed as a bare launch beside its
+   bound, B1 beside four torch.searchsorted calls, the un-permute beside
+   torch.gather, the two together beside four torch.searchsorted with
+   four index_copy_, and merge_verb_rank4 whole;
 6. the q1 fixture through the port's CLI (host route), expecting 16;
 6b. queries/q2-genomic-verbs.sql through the port's CLI with ``--device
    cuda`` (at the default threshold and at SEQUILA_HOST_THRESHOLD=0) and
@@ -244,6 +251,8 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
     "merge_probe_ranks": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:229"),
     # B1's verb mode: merge_verb_rank4's four Pallas launches in one
     "merge_verb_ranks": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:323"),
+    # merge_verb_rank4's XLA scatter to probe row order
+    "unpermute_ranks": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:345"),
     # B2 and B3: one merge path over (key, value) pairs
     "stream_rank_sorted": ("pair_merge.cu", "sequila_tpu/ops/pallas/stream_rank.py:86"),
     "rank_sorted_resident": ("pair_merge.cu", "sequila_tpu/ops/pallas/rank_kernel.py:126"),
@@ -642,6 +651,7 @@ def reset_launches():
 
     wrappers = {
         "merge_rank_sorted": mc.merge_rank_sorted, "pack_view": mc.pack_view,
+        "unpermute_ranks": mc.unpermute_ranks,
         "stream_rank_sorted": sr.stream_rank_sorted,
         "rank_sorted_resident": rk.rank_sorted_resident,
     }
@@ -1645,35 +1655,37 @@ def phase_verbs(torch, sessions, card, err):
         if out.num_rows != m or not all(np.array_equal(g, w) for g, w in zip(got, want)):
             fail(f"{label}: {verb} differs from the native host index")
 
-    # warm device launches (B1, pack_view) of each verb
-    verbs = {"count_overlaps": (1, 2), "coverage": (1, 4)}
-    verb_b1 = 0  # B1 launches of the device coverage calls (the kernels line)
+    # warm device launches (B1, pack_view, un-permute) of each verb
+    verbs = {"count_overlaps": (1, 2, 0), "coverage": (1, 4, 1)}
+    kernels = ("merge_rank_sorted", "pack_view", "unpermute_ranks")
+    # B1 and un-permute launches of the device coverage calls (the kernels line)
+    verb_b1 = verb_unpermute = 0
 
     def calls(label, route, verb, fn):
         """First and warm calls of one verb on one route, each checked."""
-        nonlocal verb_b1
+        nonlocal verb_b1, verb_unpermute
         launches = reset_launches()
         out, first = timed(torch, fn)
         ran = launches()
         check(f"{label} first call, route {route}", out, verb)
-        if route == "device" and (ran["merge_rank_sorted"] <= 0 or ran["pack_view"] <= 0):
+        if route == "device" and not all(ran[k] > 0 for k, x in zip(kernels, verbs[verb]) if x):
             fail(f"{label} {verb} on the device route launched {ran}")
-        b1 = ran["merge_rank_sorted"]
+        total = dict(ran)
         ts = []
         for _ in range(VERB_WARM_CALLS):
             launches = reset_launches()
             out, dt = timed(torch, fn)
             one = launches()
             ts.append(dt)
-            b1 += one["merge_rank_sorted"]
-            if route == "device" and (one["merge_rank_sorted"], one["pack_view"]) != verbs[verb]:
-                fail(f"a warm device {verb} ({label}) launched {one}, expected B1 "
-                     f"{verbs[verb][0]} and pack_view {verbs[verb][1]} times")
+            total = {k: total[k] + one[k] for k in total}
+            if route == "device" and tuple(one[k] for k in kernels) != verbs[verb]:
+                fail(f"a warm device {verb} ({label}) launched {one}, expected "
+                     f"{dict(zip(kernels, verbs[verb]))}")
             if route == "host" and any(one.values()):
                 fail(f"the host route's {verb} ({label}) launched {one}")
         check(f"{label} warm call, route {route}", out, verb)
         if route == "device" and verb == "coverage" and label == "DataFrame":
-            verb_b1 = b1
+            verb_b1, verb_unpermute = total["merge_rank_sorted"], total["unpermute_ranks"]
         warm = float(np.median(ts)) * 1e3
         print(f"{verb} ({label}), route {route}: equal to the native host index; first call "
               f"{first * 1e3:.3f} ms (launches {ran}), warm median {warm:.3f} ms over "
@@ -1708,51 +1720,151 @@ def phase_verbs(torch, sessions, card, err):
         print(f"{label}: {out.num_rows} rows, first call {first * 1e3:.3f} ms, warm "
               f"{warm * 1e3:.3f} ms [{card}]", flush=True)
 
-    # B1's verb-mode launch against its plain version on the same inputs,
-    # then timed as a bare launch beside its bound and the library calls
+    kernel_ms = verb_mode(torch, a, b, want_counts, card, err)
+    os.environ.pop("SEQUILA_HOST_THRESHOLD", None)
+    return {"merge_rank_sorted": verb_b1, "unpermute_ranks": verb_unpermute}, kernel_ms
+
+
+def verb_split(torch, plan, packed, orders, want, card) -> None:
+    """Where the time of the verb-mode launch through the orders goes: the
+    four segments in four variants the descriptor offers, each one launch
+    held against merge_rank_segments_plain and timed bare: (1) build views
+    packed on load, ranks through the probe views' int64 orders (the first
+    port's design); (2) ranks stored direct, in view order; (3) build views
+    pre-packed by pack_view; (4) both.  The ranks of (1) and (3) equal ``want`` (the
+    (4, n) probe-row ranks); those of (2) and (4) equal it through the
+    inverse orders."""
+    from sequila_tpu_torch.ops.cuda import merge_count as mc
+
+    segs, n, dev = plan.segplan.segs, plan.n, packed[0].device
+    tabs = [mc.pack_view(*s.raw) for s in segs]
+    offs = np.cumsum([0] + [t.numel() for t in tabs])
+    slots = (*packed, torch.empty(4 * n, dtype=torch.int32, device=dev), torch.cat(tabs))
+    ref = torch.empty_like(slots[4])
+    invs = (plan.inv_qe, plan.inv_qs, plan.inv_qe, plan.inv_qs)
+    for label, direct, prepacked in (("1: packed on load, through the orders", False, False),
+                                     ("2: packed on load, direct", True, False),
+                                     ("3: pre-packed, through the orders", False, True),
+                                     ("4: pre-packed, direct", True, True)):
+        vsegs = [
+            mc.Segment(s.n, s.m, q=s.q, strict=s.strict, out=(4, i * n), n_real=n,
+                       ord=None if direct else orders[i],
+                       **({"a": (5, int(offs[i]))} if prepacked else {"raw": s.raw}))
+            for i, s in enumerate(segs)
+        ]
+        launch = mc.segments_launcher(mc.plan_segments(vsegs, dev), slots)
+        slots[4].fill_(-1)
+        launch()
+        ref.fill_(-1)
+        mc.merge_rank_segments_plain(vsegs, (*slots[:4], ref, slots[5]))
+        d = max_diff(torch, slots[4], ref)
+        got = slots[4].view(4, n)
+        if direct:
+            got = torch.stack([row[inv] for row, inv in zip(got, invs)])
+        if d or not torch.equal(got, want):
+            fail(f"B1's verb split, variant {label}: max |diff| {d} against plain, or "
+                 "ranks that differ from merge_verb_rank4_plain")
+        ms = time_events(torch, launch, TIMED_LAUNCHES)
+        print(f"B1 verb split, variant {label}: {ms:.4f} ms a launch, equal to plain "
+              f"[{card}]", flush=True)
+
+
+def verb_mode(torch, a, b, want_counts, card, err) -> dict:
+    """B1's verb mode on the genome pair (probe ``a``, build ``b``): the
+    split of the launch through the orders (verb_split); the redesigned
+    launch (ranks in view order) against merge_rank_segments_plain and the
+    un-permute kernel against its plain version, both together against
+    merge_verb_rank4_plain and the native host index's counts; each timed
+    bare beside its bound, the verb mode as a whole beside the bound with
+    int64 orders and the library calls, and merge_verb_rank4 whole."""
+    from sequila_tpu_torch.ops.cuda import merge_count as mc
+
     plan = mc.plan_verb_ranks(b, a, (0, 1, 2), (0, 1, 2), want4=True, device="cuda")
     segs, n = plan.segplan.segs, plan.n
     packed = [mc.pack_view(*p, mc.BUILD_PAD) for p in plan.packs]
-    out = torch.full((4 * n,), -1, dtype=torch.int32, device=packed[0].device)
-    launch = mc.segments_launcher(plan.segplan, (*packed, out))
+    dev = packed[0].device
+    want = mc.merge_verb_rank4_plain(plan)
+    ord_qe, ord_qs = (torch.from_numpy(a.sorted_interval_order(0, c).astype(np.int64)).to(dev)
+                      for c in (2, 1))
+    orders = (ord_qe, ord_qs, ord_qe, ord_qs)
+    verb_split(torch, plan, packed, orders, want, card)
+
+    ranks = torch.full((4, n), -1, dtype=torch.int32, device=dev)
+    launch = mc.segments_launcher(plan.segplan, (*packed, ranks.view(-1)))
     launch()
-    want_r = mc.merge_verb_rank4_plain(plan)
-    d = max_diff(torch, out, want_r.view(-1))
-    err["merge_verb_ranks"] = d
+    ref = torch.full_like(ranks, -1)
+    mc.merge_rank_segments_plain(segs, (*packed, ref.view(-1)))
+    err["merge_verb_ranks"] = d = max_diff(torch, ranks, ref)
     if d:
-        fail(f"B1's verb-mode launch: max |diff| {d} against merge_verb_rank4_plain")
-    if not np.array_equal((out[:n] - out[n:2 * n]).cpu().numpy(), want_counts):
+        fail(f"B1's verb-mode launch: max |diff| {d} against merge_rank_segments_plain")
+    invs = (plan.inv_qe, plan.inv_qs)
+    got = mc.unpermute_ranks(ranks, *invs)
+    err["unpermute_ranks"] = d = max_diff(torch, got, mc.unpermute_ranks_plain(ranks, *invs))
+    if d:
+        fail(f"unpermute_ranks: max |diff| {d} against its plain version")
+    if not torch.equal(got, want):
+        fail("B1's verb launch and the un-permute differ from merge_verb_rank4_plain")
+    if not np.array_equal((got[0] - got[1]).cpu().numpy(), want_counts):
         fail("B1's verb-mode ranks do not give the native host index's counts")
     print(f"B1's verb-mode launch (4 segments, tables of {segs[0].n} rows packed on load, "
-          f"{segs[0].m} queries each, ranks through the orders): equal to "
-          "merge_verb_rank4_plain", flush=True)
-    # the library yardstick: four torch.searchsorted calls on the same packed
-    # values widened to int64 (u32 order), four scatters; the tables are
-    # packed outside the timed window
+          f"{segs[0].m} queries each, ranks in view order) and the un-permute of {n} rows: "
+          "equal to their plain versions, to merge_verb_rank4_plain and to the native host "
+          "index's counts", flush=True)
+
+    # the yardsticks: torch.searchsorted on the same packed values widened
+    # to int64 (u32 order), the tables packed outside the timed window;
+    # four calls give the view-order ranks, four index_copy_ through the
+    # int64 orders the probe-row ranks
     tabs = [mc.as_u32(mc.pack_view_plain(*s.raw)) for s in segs]
     qrys = [mc.as_u32(p) for p in packed]
-    lib = torch.empty((4, n), dtype=torch.int32, device=out.device)
+    view_ranks = torch.empty((4, segs[0].m), dtype=torch.int32, device=dev)
+    lib = torch.empty((4, n), dtype=torch.int32, device=dev)
 
-    def library():
+    def searchsorted4():
         for i, s in enumerate(segs):
-            ranks = torch.searchsorted(tabs[i], qrys[i], right=not s.strict, out_int32=True)
-            lib[i].index_copy_(0, s.ord, ranks[:n])
+            torch.searchsorted(tabs[i], qrys[i], right=not s.strict, out_int32=True,
+                               out=view_ranks[i])
+        return view_ranks
+
+    def library_whole():
+        for i, r in enumerate(searchsorted4()):
+            lib[i].index_copy_(0, orders[i], r[:n])
         return lib
 
-    if not torch.equal(library().view(-1), out):
-        fail("the library calls differ from B1's verb-mode ranks")
-    verb_bytes = unique_nbytes(*packed, out, *(t for s in segs for t in (*s.raw[:3], s.ord)))
-    kernel_ms = time_kernel(
-        torch, "merge_verb_ranks (B1's verb mode)",
-        lambda: mc.merge_rank_segments_plain(segs, (*packed, out)), launch, library,
-        verb_bytes, sum(s.n + s.m for s in segs),
-        f"4 segments, N={segs[0].n} M={segs[0].m}, ranks through the orders", card)
-    whole = time_events(torch, lambda: mc.merge_verb_rank4(plan), TIMED_LAUNCHES)
-    print(f"merge_verb_rank4 whole (4 pack_view and 1 B1 launch): {whole:.4f} ms [{card}]",
+    if not torch.equal(searchsorted4()[:, :n], ranks):
+        fail("the library calls differ from B1's view-order ranks")
+    if not torch.equal(library_whole(), want):
+        fail("the library calls differ from merge_verb_rank4_plain")
+    tables = [t for s in segs for t in s.raw[:3]]
+    kernel_ms = {"merge_verb_ranks": time_kernel(
+        torch, "merge_verb_ranks (B1's verb mode, ranks in view order)",
+        lambda: mc.merge_rank_segments_plain(segs, (*packed, ref.view(-1))), launch,
+        searchsorted4, unique_nbytes(*packed, ranks, *tables), sum(s.n + s.m for s in segs),
+        f"4 segments, N={segs[0].n} M={segs[0].m}, ranks direct", card)}
+    # one torch.gather computes the same function from a (4, n) int64 index
+    index = torch.stack([*invs, *invs]).to(torch.int64)
+    if not torch.equal(torch.gather(ranks, 1, index), got):
+        fail("torch.gather differs from unpermute_ranks")
+    kernel_ms["unpermute_ranks"] = time_kernel(
+        torch, "unpermute_ranks", lambda: mc.unpermute_ranks_plain(ranks, *invs),
+        lambda: mc.unpermute_ranks(ranks, *invs), lambda: torch.gather(ranks, 1, index),
+        nbytes(ranks, *invs, got), 0, f"4 planes of n={n}, int32 inverse orders", card)
+    del index
+    both = time_events(torch, lambda: (launch(), mc.unpermute_ranks(ranks, *invs)),
+                       TIMED_LAUNCHES)
+    library = time_events(torch, library_whole, TIMED_LAUNCHES)
+    old_bytes = unique_nbytes(*packed, want, *tables, ord_qe, ord_qs)
+    new_bytes = unique_nbytes(*packed, want, *tables, *invs)
+    (old_ms, _), (new_ms, _) = bound(old_bytes, 0), bound(new_bytes, 0)
+    print(f"B1's verb mode (B1 launch and un-permute): {both:.4f} ms; bound {old_ms:.4f} ms "
+          f"({old_bytes} bytes with int64 orders, {100 * old_ms / both:.1f} %), {new_ms:.4f} "
+          f"ms ({new_bytes} bytes with int32 inverse orders, {100 * new_ms / both:.1f} %); "
+          f"four torch.searchsorted and four index_copy_ {library:.4f} ms [{card}]",
           flush=True)
-    os.environ.pop("SEQUILA_HOST_THRESHOLD", None)
-    del tabs, qrys, lib, out, want_r, packed, plan
-    return {"merge_rank_sorted": verb_b1}, kernel_ms
+    whole = time_events(torch, lambda: mc.merge_verb_rank4(plan), TIMED_LAUNCHES)
+    print(f"merge_verb_rank4 whole (4 pack_view, 1 B1 and 1 un-permute launch): "
+          f"{whole:.4f} ms [{card}]", flush=True)
+    return kernel_ms
 
 
 def stream_pass(ctx, query, check):
@@ -2317,7 +2429,8 @@ def main(only_multiprocess: bool = False) -> None:
     phase_routing(torch, sessions, card)
     phase_nearest(torch, sessions, card)
     phase_malloc(card)
-    verb_launches, kernel_ms["merge_verb_ranks"] = phase_verbs(torch, sessions, card, err)
+    verb_launches, verb_ms = phase_verbs(torch, sessions, card, err)
+    kernel_ms.update(verb_ms)
     os.environ.pop("SEQUILA_HOST_THRESHOLD", None)
     phase_q1()
     phase_q2()
@@ -2332,13 +2445,15 @@ def main(only_multiprocess: bool = False) -> None:
     # each kernel's launches come from the run of its own path: B1 and
     # pack_view from the merge count(*) route, B1's level mode from the
     # device merge SELECT *, B1's per-probe mode from the merge route's
-    # grouped count, B1's verb mode from the device coverage calls of 5h,
-    # B2 from the stream route, B3 from rank_lex_resident
+    # grouped count, B1's verb mode and the un-permute from the device
+    # coverage calls of 5h, B2 from the stream route, B3 from
+    # rank_lex_resident
     launches = {
         "merge_rank_sorted": merge_launches["merge_rank_sorted"],
         "merge_level_ranks": mat_launches["merge_rank_sorted"],
         "merge_probe_ranks": probe_launches["merge_rank_sorted"],
         "merge_verb_ranks": verb_launches["merge_rank_sorted"],
+        "unpermute_ranks": verb_launches["unpermute_ranks"],
         "pack_view": merge_launches["pack_view"],
         "stream_rank_sorted": stream_launches["stream_rank_sorted"],
         "rank_sorted_resident": resident_launches["rank_sorted_resident"],

@@ -3,7 +3,8 @@
 //
 // Replaces the TPU merge-rank kernel sequila_tpu/ops/pallas/merge_count.py:110
 // ::_merge_rank_sorted (B1, kernel body _make_kernel :65), its per-level
-// caller _level_rank_pair (:615), and the XLA glue _pack_view (:158).
+// caller _level_rank_pair (:615), and the XLA glue _pack_view (:158) and
+// merge_verb_rank4's scatter to probe row order (:345).
 //
 // pack_view_kernel: monotone (key code, int32 value) -> u32 packing of one
 //   cached sorted view: out = (c_tab[k] + v) mod 2^32, PAD rows
@@ -43,6 +44,24 @@
 //   whatever the shapes: a 7-row level against 300 k queries, or an empty
 //   table (every rank 0).  What bounds it on an H100: the bytes, and for
 //   scattered ranks the random 4-byte stores through the order.
+//
+// unpermute_planes_kernel: the genomic verbs' four rank passes back to
+//   probe row order.  B1 stores them direct, in view order (coalesced):
+//   src[p * n + j] is rank row p of view slot j, rows p = 0, 2 ranking the
+//   (key, end) view and p = 1, 3 the (key, start) view.  out[p * n + i] =
+//   src[p * n + inv[i]], inv = inv_e for even p and inv_s for odd p: the
+//   views' int32 inverse orders.  One thread a row and plane, the blocks
+//   plane-major, so the random 4-byte reads of one plane at a time (n int32,
+//   30.7 MB at the genome shape) find it in the 50 MB L2 once read, while
+//   the orders and the output stream through (evict-first loads and
+//   stores).  It replaces the XLA scatter of
+//   sequila_tpu/ops/pallas/merge_count.py:345 (merge_verb_rank4's scat),
+//   which the first port folded into B1 as random 4-byte stores through
+//   the orders: 1.58 of B1's 1.81 ms on an H100.  The first redesign stored
+//   the ranks as int32 pairs, one pair a view slot, and gathered 8 bytes
+//   a view and row; its 61.5 MB sources outgrow L2, and it took longer
+//   (tools/verb_layouts.py).  What bounds it: the random sector reads of
+//   L2 (one 32-byte sector for 4 bytes), then the bytes.
 //
 // Plain C interface for ctypes.  Each entry point launches on the given
 // stream, allocates nothing, does not synchronise, and returns the
@@ -290,6 +309,17 @@ merge_path_kernel(const __grid_constant__ Params p) {
       sum, reinterpret_cast<unsigned long long*>(p.base[sg.total_slot]) + sg.total_off);
 }
 
+__global__ void __launch_bounds__(kThreads)
+unpermute_planes_kernel(const int32_t* __restrict__ src, const int32_t* __restrict__ inv_e,
+                        const int32_t* __restrict__ inv_s, int32_t* __restrict__ out,
+                        int64_t n, int64_t blocks_per_plane) {
+  const int64_t p = blockIdx.x / blocks_per_plane;
+  const int64_t i = (blockIdx.x - p * blocks_per_plane) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const int32_t j = __ldcs(((p & 1) ? inv_s : inv_e) + i);
+  __stcs(out + p * n + i, __ldg(src + p * n + j));
+}
+
 }  // namespace
 
 extern "C" int seq_pack_view(const void* k, const void* v, const void* c_tab,
@@ -324,5 +354,18 @@ extern "C" int seq_merge_path(const void* inline_segs, const void* segs, int32_t
   memcpy(p.base, bases, sizeof(p.base));
   merge_path_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// src, out: 4 n int32 (planes of n); inv_e, inv_s: n int32 slots in [0, n).
+extern "C" int seq_unpermute_planes(const void* src, const void* inv_e, const void* inv_s,
+                                    void* out, int64_t n, void* stream) {
+  if (n <= 0) return 0;
+  const int64_t per_plane = (n + kThreads - 1) / kThreads;
+  if (4 * per_plane > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  unpermute_planes_kernel<<<static_cast<unsigned>(4 * per_plane), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(src), static_cast<const int32_t*>(inv_e),
+      static_cast<const int32_t*>(inv_s), static_cast<int32_t*>(out), n, per_plane);
   return static_cast<int>(cudaGetLastError());
 }

@@ -365,6 +365,18 @@ class Table:
         num_rows)."""
         return self._sorted_view_host(key_col, val_col)[3]
 
+    def sorted_interval_inverse(self, key_col, val_col, device) -> torch.Tensor:
+        """Inverse of ``sorted_interval_order`` as an int32 tensor on
+        ``device``: original row i sits at slot ``inv[i]`` of the sorted
+        view.  Cached per view and device."""
+        cache_key = ("sivinv", key_col, val_col, _device_key(device))
+        if cache_key not in self._dev_i32:
+            order = self.sorted_interval_order(key_col, val_col)
+            inv = np.empty(len(order), np.int32)
+            inv[order] = np.arange(len(order), dtype=np.int32)
+            self._dev_i32[cache_key] = torch.from_numpy(inv).to(device)
+        return self._dev_i32[cache_key]
+
     # -- constructors -------------------------------------------------------
     @classmethod
     def from_arrow(cls, t: pa.Table) -> "Table":

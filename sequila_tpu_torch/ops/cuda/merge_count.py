@@ -18,7 +18,8 @@ sorted sequence inside another:
   counts (``merge_probe_count_passes``: the probe views ranked in the
   build views, the ranks written through the views' orders) and the
   genomic verbs' four coverage ranks (``plan_verb_ranks`` /
-  ``merge_verb_rank4``, finished by ``coverage_from_ranks``).
+  ``merge_verb_rank4``: ranks stored in view order, then one
+  ``unpermute_ranks`` launch, finished by ``coverage_from_ranks``).
 
 Count identity (BITS, Layer & Quinlan 2012):
 
@@ -576,6 +577,8 @@ class VerbRankPlan(NamedTuple):
     segplan: SegmentPlan  # the four segments of one B1 launch
     packs: tuple  # per query slot (k, v, c_tab) of a probe view, packed with BUILD_PAD
     n: int  # the probe's real rows
+    inv_qe: torch.Tensor  # int32 [n]: row i's slot in the (k, qe) view
+    inv_qs: torch.Tensor  # int32 [n]: row i's slot in the (k, qs) view
 
 
 def plan_verb_ranks(build, probe, cols_b, cols_q, *, want4: bool, device):
@@ -592,7 +595,8 @@ def plan_verb_ranks(build, probe, cols_b, cols_q, *, want4: bool, device):
     domain over 32 bits; callers fall back to the rank kernels.  Port of
     sequila_tpu/ops/pallas/merge_count.py:359::plan_verb_ranks without its
     host chunk windows and padded orders (TPU workarounds the merge path
-    does not need): the orders are the views' int64 real-row orders."""
+    does not need): the per-probe plan carries the views' int64 real-row
+    orders, the coverage plan their cached int32 inverses."""
     from sequila_tpu_torch.models.table import merge_dictionaries
 
     kb, s_b, e_b = cols_b
@@ -634,30 +638,82 @@ def plan_verb_ranks(build, probe, cols_b, cols_q, *, want4: bool, device):
     pqs_k, pqs_v, _, _, _ = probe.sorted_interval_view(kq, s_q, dev)
     bst_k, bst_v, _, _, _ = build.sorted_interval_view(kb, s_b, dev)
     ben_k, ben_v, _, _, _ = build.sorted_interval_view(kb, e_b, dev)
-    ord_qe, ord_qs = (
-        torch.from_numpy(probe.sorted_interval_order(kq, c).astype(np.int64)).to(dev)
-        for c in (e_q, s_q)
-    )
     if not want4:
+        ord_qe, ord_qs = (
+            torch.from_numpy(probe.sorted_interval_order(kq, c).astype(np.int64)).to(dev)
+            for c in (e_q, s_q)
+        )
         return plan_probe_counts(
             pqe_k, pqe_v, c_q[0], bst_k, bst_v, c_b[0],
             pqs_k, pqs_v, c_q[1], ben_k, ben_v, c_b[1], ord_qe, ord_qs,
         )
     n = probe.num_rows
-    # per segment: (queries, the build view with its C table, strict, order);
-    # query slot i holds the probe view of segment i, ranks go to row i
+    # per segment: (queries, the build view with its C table, strict); query
+    # slot i holds the probe view of segment i, whose real ranks go direct,
+    # in view order, to row i of the [4, n] view-order ranks
     parts = (
-        ((pqe_k, pqe_v, c_q[0]), (bst_k, bst_v, c_b[0]), False, ord_qe),  # ub_s
-        ((pqs_k, pqs_v, c_q[1]), (ben_k, ben_v, c_b[1]), True, ord_qs),   # lb_e
-        ((pqe_k, pqe_v, c_q[2]), (ben_k, ben_v, c_b[2]), False, ord_qe),  # ub_e
-        ((pqs_k, pqs_v, c_q[3]), (bst_k, bst_v, c_b[3]), True, ord_qs),   # lb_s
+        ((pqe_k, pqe_v, c_q[0]), (bst_k, bst_v, c_b[0]), False),  # ub_s
+        ((pqs_k, pqs_v, c_q[1]), (ben_k, ben_v, c_b[1]), True),   # lb_e
+        ((pqe_k, pqe_v, c_q[2]), (ben_k, ben_v, c_b[2]), False),  # ub_e
+        ((pqs_k, pqs_v, c_q[3]), (bst_k, bst_v, c_b[3]), True),   # lb_s
     )
     segs = tuple(
         Segment(tab[0].numel(), qry[0].numel(), q=(i, 0), strict=strict,
-                raw=(*tab, PROBE_PAD), out=(4, i * n), ord=order, n_real=n)
-        for i, (qry, tab, strict, order) in enumerate(parts)
+                raw=(*tab, PROBE_PAD), out=(4, i * n), n_real=n)
+        for i, (qry, tab, strict) in enumerate(parts)
     )
-    return VerbRankPlan(plan_segments(segs, dev), tuple(p[0] for p in parts), n)
+    return VerbRankPlan(plan_segments(segs, dev), tuple(p[0] for p in parts), n,
+                        probe.sorted_interval_inverse(kq, e_q, dev),
+                        probe.sorted_interval_inverse(kq, s_q, dev))
+
+
+def unpermute_ranks_plain(ranks, inv_e, inv_s) -> torch.Tensor:
+    """Plain PyTorch unpermute_ranks: each row indexed through its view's
+    inverse order."""
+    return torch.stack([row[inv] for row, inv in zip(ranks, (inv_e, inv_s, inv_e, inv_s))])
+
+
+def unpermute_ranks(ranks, inv_e, inv_s) -> torch.Tensor:
+    """Four rank rows stored in view order back to probe row order: (4, n)
+    int32, ``out[p, i] = ranks[p, inv[i]]`` with inv = ``inv_e`` for rows
+    0 and 2 and ``inv_s`` for rows 1 and 3.
+
+    ``ranks`` = contiguous int32 [4, n]; ``inv_e`` / ``inv_s`` = int32 [n]:
+    each probe row's slot in the view of rows 0, 2 / 1, 3 (permutations of
+    0 .. n - 1, which the kernel does not check).  One launch of
+    csrc/merge_rank.cu::unpermute_planes_kernel for CUDA tensors, counted
+    in ``unpermute_ranks.launches``; the plain version for CPU tensors.
+    Replaces the XLA scatter of sequila_tpu/ops/pallas/merge_count.py:345
+    (merge_verb_rank4's scat)."""
+    if ranks.dtype != torch.int32 or ranks.dim() != 2 or ranks.shape[0] != 4:
+        raise ValueError(f"ranks: expected int32 [4, n], got {ranks.dtype} {tuple(ranks.shape)}")
+    if not ranks.is_contiguous():
+        raise ValueError("ranks: expected a contiguous tensor")
+    _check(inv_e, "inv_e")
+    _check(inv_s, "inv_s")
+    n = ranks.shape[1]
+    if inv_e.numel() != n or inv_s.numel() != n:
+        raise ValueError(f"inverse orders of {inv_e.numel()} and {inv_s.numel()} rows, "
+                         f"ranks of {n}")
+    dev = _same_device(ranks, inv_e, inv_s)
+    if dev.type == "cpu":
+        return unpermute_ranks_plain(ranks, inv_e, inv_s)
+    from sequila_tpu_torch.ops.cuda import _lib
+
+    out = torch.empty_like(ranks)
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = _lib.lib().seq_unpermute_planes(
+            ranks.data_ptr(), inv_e.data_ptr(), inv_s.data_ptr(), out.data_ptr(), n,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _lib.check(err, "unpermute_ranks")
+    unpermute_ranks.launches += 1
+    return out
+
+
+unpermute_ranks.launches = 0
 
 
 def merge_verb_rank4(plan: VerbRankPlan) -> torch.Tensor:
@@ -670,29 +726,32 @@ def merge_verb_rank4(plan: VerbRankPlan) -> torch.Tensor:
     Four pack_view launches pack the probe views ((k, qe) under domains 2
     and 3, (k, qs) under 1 and 4, BUILD_PAD), then ONE B1 launch runs four
     segments: the build views are the tables, packed on load with
-    PROBE_PAD, and each segment writes its real ranks through the probe
-    view's order into its row.  Cross-key rows land in matched pass pairs
-    and cancel in every consumer expression (total = ub_s - lb_e,
-    nA = ub_e - lb_e, nB = ub_s - lb_s, and the prefix-sum differences read
-    same-key rank ranges by construction).  Port of
+    PROBE_PAD, and each segment stores its real ranks direct, in view
+    order, into its row (coalesced).  One unpermute_ranks launch takes
+    them to probe row order through the views' cached inverse orders.
+    Cross-key rows land in matched pass pairs and cancel in every consumer
+    expression (total = ub_s - lb_e, nA = ub_e - lb_e, nB = ub_s - lb_s,
+    and the prefix-sum differences read same-key rank ranges by
+    construction).  Port of
     sequila_tpu/ops/pallas/merge_count.py:303::merge_verb_rank4, whose four
-    Pallas B1 calls (:323-342) are the four segments here."""
+    Pallas B1 calls (:323-342) are the four segments here and whose
+    scatter (:345) is the un-permute."""
     packed = [pack_view(*p, BUILD_PAD) for p in plan.packs]
     ranks = torch.empty((4, plan.n), dtype=torch.int32, device=packed[0].device)
     merge_rank_segments(plan.segplan, (*packed, ranks.view(-1)))
-    return ranks
+    return unpermute_ranks(ranks, plan.inv_qe, plan.inv_qs)
 
 
 def merge_verb_rank4_plain(plan: VerbRankPlan) -> torch.Tensor:
     """Plain PyTorch merge_verb_rank4 with no segment machinery: per pass
-    pack_view_plain of both sides, merge_rank_plain and one scatter
-    through the order."""
-    out = torch.zeros((4, plan.n), dtype=torch.int32, device=plan.segplan.device)
-    for row, seg, qry in zip(out, plan.segplan.segs, plan.packs):
-        ranks = merge_rank_plain(pack_view_plain(*seg.raw), pack_view_plain(*qry, BUILD_PAD),
-                                 strict=seg.strict)
-        row[seg.ord] = ranks[:plan.n]
-    return out
+    pack_view_plain of both sides and merge_rank_plain, the ranks in view
+    order; then unpermute_ranks_plain through the inverse orders."""
+    ranks = torch.stack([
+        merge_rank_plain(pack_view_plain(*seg.raw), pack_view_plain(*qry, BUILD_PAD),
+                         strict=seg.strict)[:plan.n]
+        for seg, qry in zip(plan.segplan.segs, plan.packs)
+    ])
+    return unpermute_ranks_plain(ranks, plan.inv_qe, plan.inv_qs)
 
 
 def coverage_from_ranks(ranks, qs, qe, psum, esum):

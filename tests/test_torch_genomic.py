@@ -11,7 +11,9 @@ and with the cosort backend (the level index's torch ops).  The reference
 is the JAX package at its defaults; a few cases also run the JAX package
 on its own device route.  Ints and counts must be equal; pair verbs
 compare sorted rows; reldist, jaccard and the map_overlaps means and sums
-hold to rtol=1e-12 (sums taken in another order).  Partitioned mode
+hold to rtol=1e-12 (sums taken in another order).  The pair verbs run
+with both packages' native libraries loaded (tests/torch_native.py), and
+the closest cases again with both on their NumPy paths.  Partitioned mode
 (partitions=2) equals the JAX package's over its virtual mesh, and a verb
 called with no device on a machine without CUDA raises.
 """
@@ -29,6 +31,7 @@ from sequila_tpu_torch import dataframe as tdf
 from sequila_tpu_torch.models.table import Table as TorchTable
 from sequila_tpu_torch.ops import genomic as tgen
 from sequila_tpu_torch.ops.cuda import merge_count as tmc
+from torch_native import jax_native_cache, jax_native_loaded, numpy_on_both  # noqa: F401
 
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 RTOL = 1e-12
@@ -173,6 +176,7 @@ def assert_same(got, want, kind):
             assert gc.to_pylist() == wc.to_pylist(), name
 
 
+@pytest.mark.usefixtures("jax_native_loaded")
 class TestPairVerbs:
     @pytest.mark.parametrize("route", sorted(ROUTES))
     @pytest.mark.parametrize("case", CASES)
@@ -202,6 +206,22 @@ class TestPairVerbs:
         if verb == "count_overlaps":
             assert 0 < got.column_np("count").sum() < tdf.count_overlaps(
                 TorchTable(a), TorchTable(b), device="cpu").column_np("count").sum()
+
+    @pytest.mark.parametrize("route", sorted(ROUTES))
+    @pytest.mark.parametrize("case", CASES)
+    @pytest.mark.parametrize("verb", ["closest_k1", "closest_k3"])
+    def test_closest_numpy_equals_jax(self, rng, monkeypatch, numpy_on_both, verb, case, route):
+        """test_equals_jax's closest cases with both packages on their
+        NumPy host paths (genomic.closest_k)."""
+        self.test_equals_jax(rng, monkeypatch, verb, case, route)
+
+    @pytest.mark.parametrize("route", sorted(ROUTES))
+    @pytest.mark.parametrize("strand", ["same", "opposite"])
+    def test_closest_strand_numpy_equals_jax(self, rng, monkeypatch, numpy_on_both, strand,
+                                             route):
+        """test_strand_equals_jax's closest cases with both packages on
+        their NumPy host paths."""
+        self.test_strand_equals_jax(rng, monkeypatch, "closest", strand, route)
 
     @pytest.mark.parametrize("verb", ["count_overlaps", "coverage"])
     def test_same_device_route_in_both_packages(self, rng, monkeypatch, verb):
@@ -239,6 +259,27 @@ class TestPairVerbs:
         else:
             want = ["coverage"]
         assert calls == want
+
+
+def test_closest_after_a_lost_build_race(monkeypatch, request):
+    """A worker that lost the JAX library's cold-cache build race (its
+    loader tried and holds no library) still holds the port's native
+    closest(k=3) to the JAX package's native one: jax_native_loaded loads
+    a private build.  At this input the NumPy and native paths break
+    distance ties apart."""
+    from sequila_tpu.native import loader as jloader
+    from sequila_tpu_torch.native import loader as tloader
+
+    monkeypatch.setattr(jloader, "_LIB", None)
+    monkeypatch.setattr(jloader, "_TRIED", True)
+    assert not jloader.available()
+    request.getfixturevalue("jax_native_loaded")
+    assert jloader.available() and tloader.available()
+    call, kind = PAIR_VERBS["closest_k3"]
+    a, b = case_tables("int32_extremes", np.random.default_rng(0))
+    want = _reference(monkeypatch, call, a, b)
+    for route in ("host", "merge"):
+        assert_same(_port(monkeypatch, route, call, a, b), want, kind)
 
 
 class TestSingleTableVerbs:

@@ -6,12 +6,11 @@ the port's map against the JAX package's on the same random intervals, on
 the native index and on the NumPy host index, and its lazy export from
 ``sequila_tpu_torch``."""
 
-import os
-
 import numpy as np
 import pytest
 
 from sequila_tpu_torch.intervalmap import IntervalMap
+from torch_native import jax_native_cache, jax_native_loaded, numpy_on_both  # noqa: F401
 
 
 def test_readme_usage():
@@ -195,40 +194,14 @@ def test_lazy_export():
     assert "IntervalMap" in sequila_tpu_torch.__all__
 
 
-@pytest.fixture
-def jax_native_loaded(monkeypatch, tmp_path):
-    """The JAX package's native library, loaded from a private cache.
-
-    Its loader compiles into one shared ``<name>.so.tmp`` path, so two
-    test workers compiling on a cold cache at once can leave one of them
-    with no library (and the NumPy index), while the port's loader (a tmp
-    file a process) loads the native one.  When native is enabled and the
-    load failed, compile again into this test's own directory, which no
-    other process writes."""
-    from sequila_tpu.native import loader as jloader
-
-    if os.environ.get("SEQUILA_NATIVE", "1") != "0" and jloader.load() is None:
-        monkeypatch.setenv("SEQUILA_NATIVE_CACHE", str(tmp_path))
-        monkeypatch.setattr(jloader, "_TRIED", False)
-        monkeypatch.setattr(jloader, "_LIB", None)
-        jloader.load()
-
-
 @pytest.mark.parametrize("native", [True, False])
-def test_equals_jax_intervalmap(rng, monkeypatch, request, native):
+def test_equals_jax_intervalmap(rng, request, native):
     """Every query surface of the port's map equals the JAX package's on the
     same intervals, with the native C++ index and with the NumPy host index
     (whose coverage is the per-match Python sum)."""
     from sequila_tpu.intervalmap import IntervalMap as JaxMap
 
-    if native:
-        request.getfixturevalue("jax_native_loaded")
-    else:
-        from sequila_tpu.native import loader as jloader
-        from sequila_tpu_torch.native import loader as tloader
-
-        monkeypatch.setattr(jloader, "available", lambda: False)
-        monkeypatch.setattr(tloader, "available", lambda: False)
+    request.getfixturevalue("jax_native_loaded" if native else "numpy_on_both")
     n = 400
     s = rng.integers(-(2**31), 2**31 - 5000, n)
     s[: n // 2] = rng.integers(0, 20_000, n // 2)

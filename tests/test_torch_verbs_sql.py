@@ -7,7 +7,8 @@ through the two sessions; every SQL block of docs/COOKBOOK.md gives
 through the port's ``cpu`` session what the JAX session gives; every
 genomic table function (the binder's _genomic_table_function) equals the
 JAX session's on the fixtures, on the host and device routes, and the
-verbs that reach a kernel run on the session's device.
+verbs that reach a kernel run on the session's device.  Both packages
+load their native library in-process (tests/torch_native.py).
 """
 
 import os
@@ -21,11 +22,14 @@ import pytest
 from sequila_tpu.session import SessionContext as JaxSession
 from sequila_tpu_torch import dataframe as tdf
 from sequila_tpu_torch.session import SessionContext as TorchSession
+from torch_native import jax_native_cache, jax_native_loaded  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 Q2 = ROOT / "queries" / "q2-genomic-verbs.sql"
 COOKBOOK = ROOT / "docs" / "COOKBOOK.md"
 TIMING = re.compile(r"Query took [0-9.]+ seconds\.")
+# the JAX session's closest goes through its native library's available()
+pytestmark = pytest.mark.usefixtures("jax_native_loaded")
 
 
 def _cli(module: str, *args: str) -> str:

@@ -28,6 +28,10 @@ main path's shapes:
 - the 15M SELECT * pairing (gen_chain_table(20_000, 13) x (300_000, 14)) on
   the device merge route: merge_level_bounds whole (and the segmented B1's
   bare level launch), and the pairs its bounds hold (14,729,736 when right);
+- B1's verb mode on the genome pair in the verbs' direction (the probes
+  enriched with the build): merge_verb_rank4 whole, held against
+  merge_verb_rank4_plain, and a warm device coverage (host clock, median
+  of 20, SEQUILA_HOST_THRESHOLD=0), its counts summing to 99,159,827;
 with the B1 and pack_view launches of one call of each.  Needs a CUDA
 device; exits non-zero without one.
 """
@@ -82,7 +86,8 @@ def worker() -> None:
     out = {"tree": os.getcwd(), "card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()}
-    ctx = session(bd.gen_genome_table(bd.GENOME_LEFT, 21), bd.gen_genome_table(bd.GENOME_RIGHT, 22))
+    genome = bd.gen_genome_table(bd.GENOME_LEFT, 21), bd.gen_genome_table(bd.GENOME_RIGHT, 22)
+    ctx = session(*genome)
     ctx.sql(bd.QUERY)
     join = ctx.plan_sql(bd.QUERY).children[0]
     left, right = ctx.table("s1"), ctx.table("s2")
@@ -115,6 +120,7 @@ def worker() -> None:
     del plan, q1, a1, a_s, q_s, ranks
     stream_and_resident(torch, ms, ctx, out)
     del ctx
+    verbs(torch, ms, *genome, out)
 
     os.environ["SEQUILA_HOST_THRESHOLD"] = "0"
     query = ("SELECT * FROM s1 a JOIN s2 b ON a.contig = b.contig "
@@ -210,6 +216,33 @@ def stream_and_resident(torch, ms, ctx, out) -> None:
         out["b3_launch_ms"] = ms(pm.segments_launcher(
             pm._rank_plan(n, m, True, False, False, a_k.device), (a_k, a_v, r_k, r_v, ranks),
             rk.rank_sorted_resident))
+
+
+def verbs(torch, ms, t1, t2, out) -> None:
+    """B1's verb mode and a warm device coverage over the genome pair,
+    each tree through its own entry points."""
+    import numpy as np
+    import pyarrow as pa
+
+    from sequila_tpu_torch import dataframe as df
+    from sequila_tpu_torch.models.table import Table
+    from sequila_tpu_torch.ops.cuda import merge_count as mc
+
+    a, b = Table(pa.table(t2)), Table(pa.table(t1))
+    plan = mc.plan_verb_ranks(b, a, (0, 1, 2), (0, 1, 2), want4=True, device="cuda")
+    if not torch.equal(mc.merge_verb_rank4(plan), mc.merge_verb_rank4_plain(plan)):
+        sys.exit("merge_verb_rank4 differs from merge_verb_rank4_plain")
+    out["verb_rank4_ms"] = ms(lambda: mc.merge_verb_rank4(plan))
+    os.environ["SEQUILA_HOST_THRESHOLD"] = "0"
+    ts = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        counts = df.coverage(a, b, device="cuda").column_np("count")
+        ts.append(time.perf_counter() - t0)
+        if int(counts.sum()) != 99_159_827:
+            sys.exit("the device coverage's counts differ")
+    out["coverage_warm_ms"] = float(np.median(ts[1:])) * 1e3
+    del os.environ["SEQUILA_HOST_THRESHOLD"]
 
 
 def main() -> None:
