@@ -51,13 +51,21 @@ Phases, each of which exits non-zero when it fails:
 4f. the grouped count(*) ``SELECT b.contig, count(*) ... GROUP BY
    b.contig`` over the genome pair (per-probe counts): on the merge route
    (SEQUILA_HOST_THRESHOLD=0) 24 groups summing to 99,159,827, a warm query
-   launching B1 exactly once (both passes, ranks through the probe views'
-   orders) and pack_view twice; the 7,684,066 per-probe counts equal to the
-   native host index's and the level route's element by element; the host
-   route's groups equal; first and warm times of both routes; B1's
-   per-probe launch against its plain version on the same slots, timed as
-   a bare launch beside its bound and two torch.searchsorted calls with
-   their scatters;
+   launching B1 exactly once (both passes, ranks stored in view order),
+   pack_view twice and the un-permute unpermute_counts once; the 7,684,066
+   per-probe counts equal to the native host index's and the level route's
+   element by element; the host route's groups equal; first and warm times
+   of both routes; B1's per-probe mode: the launch split two ways (ranks
+   through the probe views' int64 orders, the first port's design, or
+   direct, in view order), each against its plain version and timed; the
+   launch against merge_rank_segments_plain and the un-permute against its
+   plain version, both together against merge_probe_count_passes_plain and the native
+   host index's counts; each timed as a bare launch beside its bound, B1
+   beside two torch.searchsorted calls, the un-permute beside two
+   torch.index_select and a subtraction, the two together beside both
+   bounds (with int64 orders and with int32 inverse orders) and two
+   torch.searchsorted with two index_copy_ and a subtraction, and
+   merge_probe_count_passes whole;
 5a. the materializing ``SELECT *`` at the 15M-row pairing
    (``gen_chain_table(20_000, 13)`` x ``gen_chain_table(300_000, 14)``):
    the host route for reference, then the device route on the merge
@@ -74,7 +82,9 @@ Phases, each of which exits non-zero when it fails:
    equal to its plain version on the same inputs, the launch timed against
    its plain version and its bound, with its ranks stored direct beside
    one batched torch.searchsorted over the padded levels (the same ranks),
-   and merge_level_bounds as a whole;
+   and against that searchsorted followed by one index_copy_ through the
+   int64 orders (the launch's own function, its library call), and
+   merge_level_bounds as a whole;
 5b. ``sql_batches`` of ``SELECT *`` over the chr1 pair with
    max_output_batch_size = 1,000,000 on the device and host routes:
    153,690,858 rows, batches of at most 4,000,000 rows unless one probe
@@ -106,7 +116,8 @@ Phases, each of which exits non-zero when it fails:
    tables; every count and covered-bases value equal to the native host
    index's (counts summing to 99,159,827); a warm device coverage launching
    B1, pack_view 4 times and the un-permute once, a warm count_overlaps
-   B1 once and pack_view twice, the host route nothing; first and warm
+   B1 once, pack_view twice and unpermute_counts once, the host route
+   nothing; first and warm
    times; ``closest(k=3)``, ``subtract`` and ``merge`` timed at that
    shape; B1's verb mode: the launch through the orders split four ways
    (build views packed on load or pre-packed, ranks through the orders or
@@ -249,6 +260,8 @@ KERNELS = {  # name: (source, TPU kernel it replaces)
     "pack_view": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:158"),
     # B1's per-probe mode: merge_probe_count_passes' two Pallas launches in one
     "merge_probe_ranks": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:229"),
+    # merge_probe_count_passes' XLA scatters and subtraction
+    "unpermute_counts": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:237"),
     # B1's verb mode: merge_verb_rank4's four Pallas launches in one
     "merge_verb_ranks": ("merge_rank.cu", "sequila_tpu/ops/pallas/merge_count.py:323"),
     # merge_verb_rank4's XLA scatter to probe row order
@@ -651,7 +664,7 @@ def reset_launches():
 
     wrappers = {
         "merge_rank_sorted": mc.merge_rank_sorted, "pack_view": mc.pack_view,
-        "unpermute_ranks": mc.unpermute_ranks,
+        "unpermute_ranks": mc.unpermute_ranks, "unpermute_counts": mc.unpermute_counts,
         "stream_rank_sorted": sr.stream_rank_sorted,
         "rank_sorted_resident": rk.rank_sorted_resident,
     }
@@ -1044,27 +1057,30 @@ def phase_grouped(torch, sessions, card, err):
         return counts, (time.perf_counter() - t0) * 1e3
 
     os.environ["SEQUILA_HOST_THRESHOLD"] = "0"
+    kernels = ("merge_rank_sorted", "pack_view", "unpermute_counts")
     launches = reset_launches()
     merge_out, cold = grouped("merge")
     torch.cuda.synchronize()
     ran = launches()
-    if ran["merge_rank_sorted"] <= 0 or ran["pack_view"] <= 0:
+    if not all(ran[k] > 0 for k in kernels):
         fail(f"the grouped count's merge route launched {ran}")
     launches = reset_launches()
     _, warm1 = grouped("merge")
     torch.cuda.synchronize()
     one = launches()
-    if (one["merge_rank_sorted"], one["pack_view"]) != (1, 2):
-        fail(f"a warm grouped count launched {one}, expected B1 once and pack_view twice")
+    if tuple(one[k] for k in kernels) != (1, 2, 1):
+        fail(f"a warm grouped count launched {one}, expected B1 once, pack_view twice and "
+             "unpermute_counts once")
     med, low = warm("merge", warm1)
     join = interval_join_of(ctx.plan_sql(GROUPED_QUERY))
     left, right = ctx.table("s1"), ctx.table("s2")
     ectx = ExecContext(ctx.config)
     got, probe_ms = probe_counts_ms()
     print(f"{name} grouped count, merge route: {GENOME_CONTIGS} groups summing to {expected}; "
-          f"first query {cold * 1e3:.3f} ms (launches {ran}), warm B1 once and pack_view "
-          f"twice, warm median {med:.3f} ms over {GROUPED_WARM_QUERIES}, min {low:.3f} ms; "
-          f"the per-probe counts alone {probe_ms:.3f} ms [{card}]", flush=True)
+          f"first query {cold * 1e3:.3f} ms (launches {ran}), warm B1 once, pack_view "
+          f"twice and unpermute_counts once, warm median {med:.3f} ms over "
+          f"{GROUPED_WARM_QUERIES}, min {low:.3f} ms; the per-probe counts alone "
+          f"{probe_ms:.3f} ms [{card}]", flush=True)
 
     # every per-probe count: merge route == the native host index == level
     c1, c2 = joint_codes(t1, t2)
@@ -1093,52 +1109,145 @@ def phase_grouped(torch, sessions, card, err):
           flush=True)
     os.environ["SEQUILA_HOST_THRESHOLD"] = "0"
 
-    # B1's per-probe launch against its plain version on the same slots,
-    # then timed as a bare launch beside its bound and the library calls
+    kernel_ms = probe_mode(torch, join, left, right, want, card, err)
+    return ran, kernel_ms
+
+
+def probe_split(torch, plan, packed, orders, want, card) -> None:
+    """Where the time of the per-probe launch goes: its two segments in two
+    variants, each one launch held against merge_rank_segments_plain and
+    timed bare: (1) ranks through the probe views' int64 orders (the
+    first port's design); (2) ranks stored direct, in view order (the
+    plan's own).  The ranks of (1) equal ``want`` (the (2, n) probe-row
+    ranks); those of (2) equal it through the inverse orders."""
+    from sequila_tpu_torch.ops.cuda import merge_count as mc
+
+    segs, n, dev = plan.segplan.segs, plan.n, packed[0].device
+    out = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    ref = torch.empty_like(out)
+    for label, direct in (("1: through the int64 orders", False),
+                          ("2: direct, in view order", True)):
+        vsegs = [s._replace(ord=None if direct else orders[i]) for i, s in enumerate(segs)]
+        launch = mc.segments_launcher(mc.plan_segments(vsegs, dev), (*packed, out))
+        out.fill_(-1)
+        launch()
+        ref.fill_(-1)
+        mc.merge_rank_segments_plain(vsegs, (*packed, ref))
+        d = max_diff(torch, out, ref)
+        got = out.view(2, n)
+        if direct:
+            got = torch.stack([got[0][plan.inv_qe], got[1][plan.inv_qs]])
+        if d or not torch.equal(got, want):
+            fail(f"B1's per-probe split, variant {label}: max |diff| {d} against plain, or "
+                 "ranks that differ from the library calls'")
+        ms = time_events(torch, launch, TIMED_LAUNCHES)
+        print(f"B1 per-probe split, variant {label}: {ms:.4f} ms a launch, equal to plain "
+              f"[{card}]", flush=True)
+
+
+def probe_mode(torch, join, left, right, want_counts, card, err) -> dict:
+    """B1's per-probe mode on the genome pair: the split of the launch
+    (probe_split); the redesigned launch (ranks in view order) against
+    merge_rank_segments_plain and the un-permute against its plain
+    version, both together against merge_probe_count_passes_plain and the
+    native host index's counts; each timed bare beside its bound, the mode
+    as a whole beside both bounds and the library calls, and
+    merge_probe_count_passes whole."""
+    from sequila_tpu_torch.ops.cuda import merge_count as mc
+
     inputs = join._sorted_count_inputs(left, right)
     plan = join._merge_probe_plan(left, right, *inputs)
-    segs = plan.segplan.segs
-    q_e = mc.pack_view(*plan.pqe, mc.BUILD_PAD)
-    q_s = mc.pack_view(*plan.pqs, mc.BUILD_PAD)
-    out = torch.full((2 * plan.n,), -1, dtype=torch.int32, device=q_e.device)
-    want_r = out.clone()
-    launch = mc.segments_launcher(plan.segplan, (q_e, q_s, out))
-    launch()
-    mc.merge_rank_segments_plain(segs, (q_e, q_s, want_r))
-    d = max_diff(torch, out, want_r)
-    err["merge_probe_ranks"] = d
-    if d:
-        fail(f"B1's per-probe launch: max |diff| {d} against its plain version")
-    if not np.array_equal((out[:plan.n] - out[plan.n:]).cpu().numpy(), want):
-        fail("B1's per-probe ranks do not give the native host index's counts")
-    print(f"B1's per-probe launch (2 segments, tables of {segs[0].n} rows packed on load, "
-          f"{segs[0].m} queries each, ranks through the orders): equal to plain", flush=True)
-    # the library yardstick: two torch.searchsorted calls on the same packed
-    # values widened to int64 (u32 order), two scatters, one subtraction;
-    # the tables are packed outside the timed window
+    segs, n = plan.segplan.segs, plan.n
+    packed = (mc.pack_view(*plan.pqe, mc.BUILD_PAD), mc.pack_view(*plan.pqs, mc.BUILD_PAD))
+    dev = packed[0].device
+    r_on, qs_cd, qe_cd = inputs[1], inputs[4], inputs[5]
+    orders = [torch.from_numpy(right.sorted_interval_order(r_on.index, c).astype(np.int64))
+              .to(dev) for c in (qe_cd[0], qs_cd[0])]
+    invs = (plan.inv_qe, plan.inv_qs)
+
+    # the yardsticks: torch.searchsorted on the same packed values widened
+    # to int64 (u32 order), the tables packed outside the timed window; two
+    # calls give the view-order ranks, two index_copy_ through the int64
+    # orders the probe-row ranks, and a subtraction the counts
     tabs = [mc.as_u32(mc.pack_view_plain(*s.raw)) for s in segs]
-    qrys = [mc.as_u32(q_e), mc.as_u32(q_s)]
-    lib = torch.empty((2, plan.n), dtype=torch.int32, device=q_e.device)
+    qrys = [mc.as_u32(p) for p in packed]
+    view_ranks = torch.empty((2, segs[0].m), dtype=torch.int32, device=dev)
+    lib = torch.empty((2, n), dtype=torch.int32, device=dev)
 
-    def library():
+    def searchsorted2():
         for i, s in enumerate(segs):
-            ranks = torch.searchsorted(tabs[i], qrys[i], right=not s.strict, out_int32=True)
-            lib[i].index_copy_(0, s.ord, ranks[:plan.n])
-        return lib[0] - lib[1]
+            torch.searchsorted(tabs[i], qrys[i], right=not s.strict, out_int32=True,
+                               out=view_ranks[i])
+        return view_ranks
 
-    if not torch.equal(library(), out[:plan.n] - out[plan.n:]):
-        fail("the library calls differ from B1's per-probe ranks")
-    probe_bytes = (nbytes(q_e, q_s, out) + sum(nbytes(*s.raw[:3], s.ord) for s in segs))
-    kernel_ms = time_kernel(
-        torch, "merge_probe_ranks (B1's per-probe launch)",
-        lambda: mc.merge_rank_segments_plain(segs, (q_e, q_s, out)), launch, library,
-        probe_bytes, sum(s.n + s.m for s in segs),
-        f"2 segments, N={segs[0].n} M={segs[0].m}, ranks through the orders", card)
+    def library_rows():
+        for i, r in enumerate(searchsorted2()):
+            lib[i].index_copy_(0, orders[i], r[:n])
+        return lib
+
+    want_rows = library_rows().clone()
+    probe_split(torch, plan, packed, orders, want_rows, card)
+
+    ranks = torch.full((2, n), -1, dtype=torch.int32, device=dev)
+    launch = mc.segments_launcher(plan.segplan, (*packed, ranks.view(-1)))
+    launch()
+    ref = torch.full_like(ranks, -1)
+    mc.merge_rank_segments_plain(segs, (*packed, ref.view(-1)))
+    err["merge_probe_ranks"] = d = max_diff(torch, ranks, ref)
+    if d:
+        fail(f"B1's per-probe launch: max |diff| {d} against merge_rank_segments_plain")
+    got = mc.unpermute_counts(ranks, *invs)
+    err["unpermute_counts"] = d = max_diff(torch, got, mc.unpermute_counts_plain(ranks, *invs))
+    if d:
+        fail(f"unpermute_counts: max |diff| {d} against its plain version")
+    if not torch.equal(got, mc.merge_probe_count_passes_plain(plan)):
+        fail("B1's per-probe launch and the un-permute differ from "
+             "merge_probe_count_passes_plain")
+    if not np.array_equal(got.cpu().numpy(), want_counts):
+        fail("B1's per-probe ranks do not give the native host index's counts")
+    if not torch.equal(searchsorted2()[:, :n], ranks):
+        fail("the library calls differ from B1's view-order ranks")
+    print(f"B1's per-probe launch (2 segments, tables of {segs[0].n} rows packed on load, "
+          f"{segs[0].m} queries each, ranks in view order) and the un-permute of {n} rows: "
+          "equal to their plain versions, to merge_probe_count_passes_plain and to the native "
+          "host index's counts", flush=True)
+
+    tables = [t for s in segs for t in s.raw[:3]]
+    kernel_ms = {"merge_probe_ranks": time_kernel(
+        torch, "merge_probe_ranks (B1's per-probe mode, ranks in view order)",
+        lambda: mc.merge_rank_segments_plain(segs, (*packed, ref.view(-1))), launch,
+        searchsorted2, unique_nbytes(*packed, ranks, *tables), sum(s.n + s.m for s in segs),
+        f"2 segments, N={segs[0].n} M={segs[0].m}, ranks direct", card)}
+    # two torch.index_select and a subtraction compute the same function
+    if not torch.equal(torch.index_select(ranks[0], 0, invs[0])
+                       - torch.index_select(ranks[1], 0, invs[1]), got):
+        fail("torch.index_select differs from unpermute_counts")
+    kernel_ms["unpermute_counts"] = time_kernel(
+        torch, "unpermute_counts", lambda: mc.unpermute_counts_plain(ranks, *invs),
+        lambda: mc.unpermute_counts(ranks, *invs),
+        lambda: torch.index_select(ranks[0], 0, invs[0]) - torch.index_select(ranks[1], 0, invs[1]),
+        nbytes(ranks, *invs, got), 2 * n, f"2 planes of n={n}, int32 inverse orders", card)
+    both = time_events(torch, lambda: (launch(), mc.unpermute_counts(ranks, *invs)),
+                       TIMED_LAUNCHES)
+    library = time_events(torch, lambda: library_rows()[0] - lib[1], TIMED_LAUNCHES)
+    if not torch.equal(library_rows()[0] - lib[1], got):
+        fail("the library calls differ from the per-probe counts")
+    old_bytes = unique_nbytes(*packed, ranks, *tables, *orders)
+    # the redesign's bound: the launch's bytes, then the un-permute's (the
+    # view-order ranks written once and read once)
+    new_bytes = unique_nbytes(*packed, ranks, *tables) + nbytes(ranks, *invs, got)
+    (old_ms, _), (new_ms, _) = bound(old_bytes, 0), bound(new_bytes, 0)
+    print(f"B1's per-probe mode (B1 launch and un-permute): {both:.4f} ms; bound {old_ms:.4f} "
+          f"ms ({old_bytes} bytes, the first port's design through int64 orders, "
+          f"{100 * old_ms / both:.1f} %), {new_ms:.4f} ms ({new_bytes} bytes, ranks in view "
+          f"order and the un-permute through int32 inverse orders, {100 * new_ms / both:.1f} "
+          f"%); two torch.searchsorted, two index_copy_ and a subtraction {library:.4f} ms "
+          f"[{card}]", flush=True)
     whole = time_events(torch, lambda: mc.merge_probe_count_passes(plan), TIMED_LAUNCHES)
-    print(f"merge_probe_count_passes whole (2 pack_view and 1 B1 launch, the subtraction): "
+    print(f"merge_probe_count_passes whole (2 pack_view, 1 B1 and 1 un-permute launch): "
           f"{whole:.4f} ms [{card}]", flush=True)
-    del tabs, qrys, lib, out, want_r
-    return ran, kernel_ms
+    del tabs, qrys, view_ranks, lib, want_rows, ranks, ref, orders
+    return kernel_ms
 
 
 def checksum(batches) -> tuple[int, int]:
@@ -1373,13 +1482,29 @@ def phase_emission_parts(torch, ctx, card, err):
     torch.searchsorted(lev, qry, right=True, out_int32=True, out=lib_out)
     if not torch.equal(lib_out[:, :n], out.view(2 * L, n)):
         fail("the batched torch.searchsorted differs from the direct level launch")
-    t_lib = time_events(
+    t_sorted = time_events(
         torch, lambda: torch.searchsorted(lev, qry, right=True, out_int32=True, out=lib_out),
         TIMED_LAUNCHES)
-    level_ms["library_ms"] = t_lib
     print(f"one batched torch.searchsorted over the [{2 * L}, {max(sizes)}] padded levels, "
-          f"the same ranks as the direct launch: {t_lib:.4f} ms [{card}]", flush=True)
-    del lev, qry, lib_out
+          f"the same ranks as the direct launch: {t_sorted:.4f} ms [{card}]", flush=True)
+    # the launch's own function, its library call: that searchsorted, then
+    # one index_copy_ puts each row's real ranks through its int64 order
+    # (one flat index over the [2, L, n] bounds, built outside the window)
+    index = torch.cat([s.ord + s.out[1] for s in sorted(segplan.segs, key=lambda s: s.out)])
+    lib_bounds = torch.empty_like(out)
+
+    def library():
+        torch.searchsorted(lev, qry, right=True, out_int32=True, out=lib_out)
+        return lib_bounds.index_copy_(0, index, lib_out[:, :n].reshape(-1))
+
+    if not torch.equal(library(), want.view(-1)):
+        fail("torch.searchsorted with index_copy_ differs from the level launch")
+    t_lib = time_events(torch, library, TIMED_LAUNCHES)
+    level_ms["library_ms"] = t_lib
+    print(f"that torch.searchsorted and one index_copy_ through the orders, the level "
+          f"launch's own function: {t_lib:.4f} ms against the launch's {level_ms['ms']:.4f} "
+          f"[{card}]", flush=True)
+    del lev, qry, lib_out, index, lib_bounds
     whole = time_events(torch, lambda: mc.merge_level_bounds(plan), TIMED_LAUNCHES)
     print(f"merge_level_bounds whole (2 pack_view + 1 B1 launch): {whole:.4f} ms [{card}]",
           flush=True)
@@ -1656,8 +1781,8 @@ def phase_verbs(torch, sessions, card, err):
             fail(f"{label}: {verb} differs from the native host index")
 
     # warm device launches (B1, pack_view, un-permute) of each verb
-    verbs = {"count_overlaps": (1, 2, 0), "coverage": (1, 4, 1)}
-    kernels = ("merge_rank_sorted", "pack_view", "unpermute_ranks")
+    verbs = {"count_overlaps": (1, 2, 0, 1), "coverage": (1, 4, 1, 0)}
+    kernels = ("merge_rank_sorted", "pack_view", "unpermute_ranks", "unpermute_counts")
     # B1 and un-permute launches of the device coverage calls (the kernels line)
     verb_b1 = verb_unpermute = 0
 
@@ -2420,7 +2545,8 @@ def main(only_multiprocess: bool = False) -> None:
     phase_level(torch, sessions, card)
     resident_launches, resident_cols = phase_resident(torch, dev)
     kernel_ms, _ = phase_times(torch, sessions, card, err, resident_cols)
-    probe_launches, kernel_ms["merge_probe_ranks"] = phase_grouped(torch, sessions, card, err)
+    probe_launches, probe_ms = phase_grouped(torch, sessions, card, err)
+    kernel_ms.update(probe_ms)
     mat_ctx, mat_expected, mat_ref, mat_launches = phase_materialize(torch, card)
     kernel_ms["merge_level_ranks"] = phase_emission_parts(torch, mat_ctx, card, err)
     phase_stream(sessions, card)
@@ -2444,14 +2570,15 @@ def main(only_multiprocess: bool = False) -> None:
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches come from the run of its own path: B1 and
     # pack_view from the merge count(*) route, B1's level mode from the
-    # device merge SELECT *, B1's per-probe mode from the merge route's
-    # grouped count, B1's verb mode and the un-permute from the device
+    # device merge SELECT *, B1's per-probe mode and its un-permute from the
+    # merge route's grouped count, B1's verb mode and the un-permute from the device
     # coverage calls of 5h, B2 from the stream route, B3 from
     # rank_lex_resident
     launches = {
         "merge_rank_sorted": merge_launches["merge_rank_sorted"],
         "merge_level_ranks": mat_launches["merge_rank_sorted"],
         "merge_probe_ranks": probe_launches["merge_rank_sorted"],
+        "unpermute_counts": probe_launches["unpermute_counts"],
         "merge_verb_ranks": verb_launches["merge_rank_sorted"],
         "unpermute_ranks": verb_launches["unpermute_ranks"],
         "pack_view": merge_launches["pack_view"],

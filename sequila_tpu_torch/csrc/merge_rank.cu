@@ -3,7 +3,8 @@
 //
 // Replaces the TPU merge-rank kernel sequila_tpu/ops/pallas/merge_count.py:110
 // ::_merge_rank_sorted (B1, kernel body _make_kernel :65), its per-level
-// caller _level_rank_pair (:615), and the XLA glue _pack_view (:158) and
+// caller _level_rank_pair (:615), and the XLA glue _pack_view (:158),
+// merge_probe_count_passes' scatters and subtraction (:237-243) and
 // merge_verb_rank4's scatter to probe row order (:345).
 //
 // pack_view_kernel: monotone (key code, int32 value) -> u32 packing of one
@@ -62,6 +63,29 @@
 //   a view and row; its 61.5 MB sources outgrow L2, and it took longer
 //   (tools/verb_layouts.py).  What bounds it: the random sector reads of
 //   L2 (one 32-byte sector for 4 bytes), then the bytes.
+//
+// unpermute_counts_kernel: the per-probe counts' two rank passes back to
+//   probe row order, the BITS subtraction fused.  B1 stores them direct, in
+//   view order: src[j] ranks slot j of the (key, end) view and src[n + j]
+//   slot j of the (key, start) view.  out[i] = src[inv_e[i]] -
+//   src[n + inv_s[i]], the views' int32 inverse orders.  The two planes
+//   together (61.5 MB at the genome shape) outgrow the 50 MB L2, one (30.7
+//   MB) fits: so the blocks run plane-major, as in unpermute_planes_kernel,
+//   and each adds its plane's term (+ for plane 0, - for plane 1) into the
+//   output, zeroed first, with a reduction to global memory (red.add, done
+//   in L2; int32 addition wraps, so the order of the two terms does not
+//   matter).  The random 4-byte reads of one plane at a time hit L2 once
+//   read; the inverse orders stream through (evict-first loads).  It
+//   replaces the two XLA scatters and the subtraction of
+//   sequila_tpu/ops/pallas/merge_count.py:237-243, which the first port
+//   folded into B1 as random 4-byte stores through int64 orders (0.60 of
+//   that launch's 0.73 ms on an H100).  tools/probe_layouts.py times the
+//   other designs at the genome shape on an H100: one pass that reads both
+//   planes for each row 0.32 ms against this one's 0.20 (its reads miss
+//   L2); two launches of one plane each, the second reading the output
+//   back instead of a zeroing, 0.19 ms, but two launches a call; one
+//   launch ordered by tickets (plane 1's blocks wait for plane 0's) 0.21.
+//   What bounds it: the random sector reads of L2, then the bytes.
 //
 // Plain C interface for ctypes.  Each entry point launches on the given
 // stream, allocates nothing, does not synchronise, and returns the
@@ -320,6 +344,17 @@ unpermute_planes_kernel(const int32_t* __restrict__ src, const int32_t* __restri
   __stcs(out + p * n + i, __ldg(src + p * n + j));
 }
 
+__global__ void __launch_bounds__(kThreads)
+unpermute_counts_kernel(const int32_t* __restrict__ src, const int32_t* __restrict__ inv_e,
+                        const int32_t* __restrict__ inv_s, int32_t* __restrict__ out,
+                        int64_t n, int64_t blocks_per_plane) {
+  const int64_t p = blockIdx.x / blocks_per_plane;
+  const int64_t i = (blockIdx.x - p * blocks_per_plane) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const int32_t r = __ldg(src + p * n + __ldcs((p ? inv_s : inv_e) + i));
+  atomicAdd(out + i, p ? -r : r);  // no result used: compiled to red.global.add
+}
+
 }  // namespace
 
 extern "C" int seq_pack_view(const void* k, const void* v, const void* c_tab,
@@ -365,6 +400,22 @@ extern "C" int seq_unpermute_planes(const void* src, const void* inv_e, const vo
   if (4 * per_plane > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
   unpermute_planes_kernel<<<static_cast<unsigned>(4 * per_plane), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(src), static_cast<const int32_t*>(inv_e),
+      static_cast<const int32_t*>(inv_s), static_cast<int32_t*>(out), n, per_plane);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// src: 2 n int32 (two planes of n); inv_e, inv_s: n int32 slots in [0, n);
+// out: n int32, zeroed here on the stream before the launch.
+extern "C" int seq_unpermute_counts(const void* src, const void* inv_e, const void* inv_s,
+                                    void* out, int64_t n, void* stream) {
+  if (n <= 0) return 0;
+  const int64_t per_plane = (n + kThreads - 1) / kThreads;
+  if (2 * per_plane > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = cudaMemsetAsync(out, 0, n * sizeof(int32_t), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  unpermute_counts_kernel<<<static_cast<unsigned>(2 * per_plane), kThreads, 0, st>>>(
       static_cast<const int32_t*>(src), static_cast<const int32_t*>(inv_e),
       static_cast<const int32_t*>(inv_s), static_cast<int32_t*>(out), n, per_plane);
   return static_cast<int>(cudaGetLastError());

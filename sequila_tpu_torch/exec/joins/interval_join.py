@@ -1518,13 +1518,10 @@ class IntervalJoinExec(ExecPlan):
         bs_k, bs_v, _, _, _ = left.sorted_interval_view(l_on.index, bs_cd[0], dev)
         pq_k, pq_v, _, _, _ = right.sorted_interval_view(r_on.index, qs_cd[0], dev)
         be_k, be_v, _, _, _ = left.sorted_interval_view(l_on.index, be_cd[0], dev)
-        ord_qe, ord_qs = (
-            torch.from_numpy(right.sorted_interval_order(r_on.index, c).astype(np.int64)).to(dev)
-            for c in (qe_cd[0], qs_cd[0])
-        )
         return mc.plan_probe_counts(
             pe_k, pe_v, c_qe, bs_k, bs_v, c_bs, pq_k, pq_v, c_qs, be_k, be_v, c_be,
-            ord_qe, ord_qs,
+            right.sorted_interval_inverse(r_on.index, qe_cd[0], dev),
+            right.sorted_interval_inverse(r_on.index, qs_cd[0], dev),
         )
 
     def _level_probe_counts(self, ctx, left: Table, right: Table) -> np.ndarray:

@@ -110,6 +110,8 @@ def lib() -> ctypes.CDLL:
             cdll.seq_merge_path.argtypes = [vp, vp, i32, i64, vp, vp]
             cdll.seq_unpermute_planes.restype = ctypes.c_int
             cdll.seq_unpermute_planes.argtypes = [vp, vp, vp, vp, i64, vp]
+            cdll.seq_unpermute_counts.restype = ctypes.c_int
+            cdll.seq_unpermute_counts.argtypes = [vp, vp, vp, vp, i64, vp]
             cdll.seq_pair_merge.restype = ctypes.c_int
             cdll.seq_pair_merge.argtypes = [vp, vp, i32, i64, vp, vp]
             _LIB = cdll

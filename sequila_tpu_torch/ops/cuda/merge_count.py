@@ -16,10 +16,11 @@ sorted sequence inside another:
   hand-written CUDA kernels (csrc/merge_rank.cu).  A count(*) is one
   launch for both passes (``merge_count_passes``), and so are per-probe
   counts (``merge_probe_count_passes``: the probe views ranked in the
-  build views, the ranks written through the views' orders) and the
-  genomic verbs' four coverage ranks (``plan_verb_ranks`` /
-  ``merge_verb_rank4``: ranks stored in view order, then one
-  ``unpermute_ranks`` launch, finished by ``coverage_from_ranks``).
+  build views, ranks stored in view order, then one ``unpermute_counts``
+  launch that takes their difference to probe row order) and the genomic
+  verbs' four coverage ranks (``plan_verb_ranks`` / ``merge_verb_rank4``:
+  ranks stored in view order, then one ``unpermute_ranks`` launch,
+  finished by ``coverage_from_ranks``).
 
 Count identity (BITS, Layer & Quinlan 2012):
 
@@ -510,10 +511,12 @@ def merge_count_passes(
 
 
 class ProbeCountPlan(NamedTuple):
-    segplan: SegmentPlan
+    segplan: SegmentPlan  # the two segments of one B1 launch
     pqe: tuple  # (k, v, c_tab) of the probe view sorted by (k, qe)
     pqs: tuple  # (k, v, c_tab) of the probe view sorted by (k, qs)
     n: int  # the probe's real rows
+    inv_qe: torch.Tensor  # int32 [n]: row i's slot in the (k, qe) view
+    inv_qs: torch.Tensor  # int32 [n]: row i's slot in the (k, qs) view
 
 
 def plan_probe_counts(
@@ -521,7 +524,7 @@ def plan_probe_counts(
     bst_k, bst_v, c_bs,  # build sorted by (k, start): table of pass A
     pqs_k, pqs_v, c_qs,  # probe sorted by (k, qs):    queries of pass B
     ben_k, ben_v, c_be,  # build sorted by (k, end):   table of pass B
-    ord_qe, ord_qs,      # int64 orders of the probe views' real rows
+    inv_qe, inv_qs,      # int32 inverse orders of the probe views' real rows
 ) -> ProbeCountPlan:
     """Plan of merge_probe_count_passes: the two segments of one B1 launch.
 
@@ -531,24 +534,77 @@ def plan_probe_counts(
     tables, packed on load with PROBE_PAD, and the probe views the queries,
     packed by pack_view with BUILD_PAD.  Pass A (non-strict) ranks each
     probe end among the build starts, pass B (strict) each probe start
-    among the build ends; each writes the ranks of the view's real rows
-    (they lead, PAD slots trail) to probe row order through its order.
+    among the build ends; each stores the ranks of the view's real rows
+    (they lead, PAD slots trail) direct, in view order, into its row of
+    the [2, n] ranks, which unpermute_counts takes to probe row order
+    through the inverse orders (``Table.sorted_interval_inverse``).
     Build PAD rows pack to PROBE_PAD, above every real query, and count in
     neither pass.  Port of the device half of
     sequila_tpu/ops/pallas/merge_count.py:196::merge_probe_count_passes;
     its host chunk windows and padded orders are TPU workarounds the
     merge path does not need."""
-    n = ord_qe.numel()
-    if ord_qs.numel() != n:
-        raise ValueError(f"orders of {n} and {ord_qs.numel()} rows")
+    n = inv_qe.numel()
+    if inv_qs.numel() != n:
+        raise ValueError(f"inverse orders of {n} and {inv_qs.numel()} rows")
+    _check(inv_qe, "inv_qe")
+    _check(inv_qs, "inv_qs")
     segs = (
         Segment(bst_k.numel(), pqe_k.numel(), q=(0, 0), strict=False,
-                raw=(bst_k, bst_v, c_bs, PROBE_PAD), out=(2, 0), ord=ord_qe, n_real=n),
+                raw=(bst_k, bst_v, c_bs, PROBE_PAD), out=(2, 0), n_real=n),
         Segment(ben_k.numel(), pqs_k.numel(), q=(1, 0), strict=True,
-                raw=(ben_k, ben_v, c_be, PROBE_PAD), out=(2, n), ord=ord_qs, n_real=n),
+                raw=(ben_k, ben_v, c_be, PROBE_PAD), out=(2, n), n_real=n),
     )
-    return ProbeCountPlan(plan_segments(segs, ord_qe.device),
-                          (pqe_k, pqe_v, c_qe), (pqs_k, pqs_v, c_qs), n)
+    return ProbeCountPlan(plan_segments(segs, inv_qe.device),
+                          (pqe_k, pqe_v, c_qe), (pqs_k, pqs_v, c_qs), n, inv_qe, inv_qs)
+
+
+def unpermute_counts_plain(ranks, inv_e, inv_s) -> torch.Tensor:
+    """Plain PyTorch unpermute_counts: each row indexed through its view's
+    inverse order, then the difference."""
+    return ranks[0][inv_e] - ranks[1][inv_s]
+
+
+def unpermute_counts(ranks, inv_e, inv_s) -> torch.Tensor:
+    """Per-probe counts from two rank rows stored in view order: int32
+    [n], ``out[i] = ranks[0, inv_e[i]] - ranks[1, inv_s[i]]``.
+
+    ``ranks`` = contiguous int32 [2, n]; ``inv_e`` / ``inv_s`` = int32 [n]:
+    each probe row's slot in the view of row 0 / row 1 (permutations of
+    0 .. n - 1, which the kernel does not check).  One launch of
+    csrc/merge_rank.cu::unpermute_counts_kernel for CUDA tensors, counted
+    in ``unpermute_counts.launches``; the plain version for CPU tensors.
+    Replaces the two XLA scatters and the subtraction of
+    sequila_tpu/ops/pallas/merge_count.py:237-243
+    (merge_probe_count_passes)."""
+    if ranks.dtype != torch.int32 or ranks.dim() != 2 or ranks.shape[0] != 2:
+        raise ValueError(f"ranks: expected int32 [2, n], got {ranks.dtype} {tuple(ranks.shape)}")
+    if not ranks.is_contiguous():
+        raise ValueError("ranks: expected a contiguous tensor")
+    _check(inv_e, "inv_e")
+    _check(inv_s, "inv_s")
+    n = ranks.shape[1]
+    if inv_e.numel() != n or inv_s.numel() != n:
+        raise ValueError(f"inverse orders of {inv_e.numel()} and {inv_s.numel()} rows, "
+                         f"ranks of {n}")
+    dev = _same_device(ranks, inv_e, inv_s)
+    if dev.type == "cpu":
+        return unpermute_counts_plain(ranks, inv_e, inv_s)
+    from sequila_tpu_torch.ops.cuda import _lib
+
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = _lib.lib().seq_unpermute_counts(
+            ranks.data_ptr(), inv_e.data_ptr(), inv_s.data_ptr(), out.data_ptr(), n,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _lib.check(err, "unpermute_counts")
+    unpermute_counts.launches += 1
+    return out
+
+
+unpermute_counts.launches = 0
 
 
 def merge_probe_count_passes(plan: ProbeCountPlan) -> torch.Tensor:
@@ -559,13 +615,30 @@ def merge_probe_count_passes(plan: ProbeCountPlan) -> torch.Tensor:
     Build rows of smaller joint keys land in both terms (their packed start
     AND end sit in lower u32 segments) and cancel; larger keys land in
     neither; same-key rows reduce to exact BITS.  Two pack_view launches
-    for the probe views, one B1 launch for both passes (ranks through the
-    orders), one subtraction."""
+    for the probe views, one B1 launch for both passes (ranks stored
+    direct, in view order), one unpermute_counts launch (the difference
+    through the inverse orders).  Port of
+    sequila_tpu/ops/pallas/merge_count.py:196::merge_probe_count_passes,
+    whose two Pallas B1 calls (:229-230) are the two segments here and
+    whose scatters and subtraction (:237-243) are the un-permute."""
     q_e = pack_view(*plan.pqe, BUILD_PAD)
     q_s = pack_view(*plan.pqs, BUILD_PAD)
     ranks = torch.empty((2, plan.n), dtype=torch.int32, device=q_e.device)
     merge_rank_segments(plan.segplan, (q_e, q_s, ranks.view(-1)))
-    return ranks[0] - ranks[1]
+    return unpermute_counts(ranks, plan.inv_qe, plan.inv_qs)
+
+
+def merge_probe_count_passes_plain(plan: ProbeCountPlan) -> torch.Tensor:
+    """Plain PyTorch merge_probe_count_passes with no segment machinery:
+    per pass pack_view_plain of both sides and merge_rank_plain, the ranks
+    in view order; then unpermute_counts_plain through the inverse
+    orders."""
+    ranks = torch.stack([
+        merge_rank_plain(pack_view_plain(*seg.raw), pack_view_plain(*qry, BUILD_PAD),
+                         strict=seg.strict)[:plan.n]
+        for seg, qry in zip(plan.segplan.segs, (plan.pqe, plan.pqs))
+    ])
+    return unpermute_counts_plain(ranks, plan.inv_qe, plan.inv_qs)
 
 
 # ---------------------------------------------------------------------------
@@ -595,8 +668,8 @@ def plan_verb_ranks(build, probe, cols_b, cols_q, *, want4: bool, device):
     domain over 32 bits; callers fall back to the rank kernels.  Port of
     sequila_tpu/ops/pallas/merge_count.py:359::plan_verb_ranks without its
     host chunk windows and padded orders (TPU workarounds the merge path
-    does not need): the per-probe plan carries the views' int64 real-row
-    orders, the coverage plan their cached int32 inverses."""
+    does not need): both plans carry the probe views' cached int32 inverse
+    orders."""
     from sequila_tpu_torch.models.table import merge_dictionaries
 
     kb, s_b, e_b = cols_b
@@ -638,14 +711,12 @@ def plan_verb_ranks(build, probe, cols_b, cols_q, *, want4: bool, device):
     pqs_k, pqs_v, _, _, _ = probe.sorted_interval_view(kq, s_q, dev)
     bst_k, bst_v, _, _, _ = build.sorted_interval_view(kb, s_b, dev)
     ben_k, ben_v, _, _, _ = build.sorted_interval_view(kb, e_b, dev)
+    inv_qe = probe.sorted_interval_inverse(kq, e_q, dev)
+    inv_qs = probe.sorted_interval_inverse(kq, s_q, dev)
     if not want4:
-        ord_qe, ord_qs = (
-            torch.from_numpy(probe.sorted_interval_order(kq, c).astype(np.int64)).to(dev)
-            for c in (e_q, s_q)
-        )
         return plan_probe_counts(
             pqe_k, pqe_v, c_q[0], bst_k, bst_v, c_b[0],
-            pqs_k, pqs_v, c_q[1], ben_k, ben_v, c_b[1], ord_qe, ord_qs,
+            pqs_k, pqs_v, c_q[1], ben_k, ben_v, c_b[1], inv_qe, inv_qs,
         )
     n = probe.num_rows
     # per segment: (queries, the build view with its C table, strict); query
@@ -663,8 +734,7 @@ def plan_verb_ranks(build, probe, cols_b, cols_q, *, want4: bool, device):
         for i, (qry, tab, strict) in enumerate(parts)
     )
     return VerbRankPlan(plan_segments(segs, dev), tuple(p[0] for p in parts), n,
-                        probe.sorted_interval_inverse(kq, e_q, dev),
-                        probe.sorted_interval_inverse(kq, s_q, dev))
+                        inv_qe, inv_qs)
 
 
 def unpermute_ranks_plain(ranks, inv_e, inv_s) -> torch.Tensor:

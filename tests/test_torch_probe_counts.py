@@ -3,11 +3,16 @@
 IntervalJoinExec.per_probe_counts of sequila_tpu_torch (``device="cpu"``,
 the kernels' plain versions) against the JAX package's on the same arrow
 tables, route by route, exactly: the host index at the default threshold,
-the merge backend's per-probe passes (B1 through the views' orders) with
+the merge backend's per-probe passes (B1's ranks in view order, then
+unpermute_counts through the cached inverse orders) with
 SEQUILA_HOST_THRESHOLD=0, and the level loop for every shape the merge
-plan declines.  merge_probe_count_passes against the JAX one on the same
-sorted views; the grouped count(*) through SQL against the JAX session.
-The ``cuda`` test holds a warm device per-probe count to one B1 launch.
+plan declines.  merge_probe_count_passes and merge_probe_count_passes_plain
+against the JAX one on the same sorted views, also on probes already in
+view order, reversed, of one key, one row past a 2048 multiple and of
+one row; unpermute_counts against a numpy reference; the grouped count(*)
+through SQL against the JAX session.  The ``cuda`` test holds a warm
+device per-probe count to one B1, two pack_view and one un-permute
+launch, and the un-permute kernel to its plain version.
 """
 
 import numpy as np
@@ -33,6 +38,7 @@ from test_torch_interval_count import (
     _tables,
     _wide,
 )
+from test_torch_verb_ranks import _one_probe_row, _probe_in_view_order
 
 
 def _route(ctx, op) -> str:
@@ -85,6 +91,15 @@ def _mixed_key_types(rng):
     lk = rng.integers(0, 5, lt.num_rows).astype(np.int32)
     rk = rng.integers(0, 6, rt.num_rows).astype(np.int64)
     return lt.set_column(0, "contig", pa.array(lk)), rt.set_column(0, "contig", pa.array(rk))
+
+
+EDGE_SHAPES = {  # (build, probe) of the per-probe parity's edge cases
+    "identity_orders": lambda rng: _probe_in_view_order(rng, 900),
+    "reverse_orders": lambda rng: _probe_in_view_order(rng, 900, reverse=True),
+    "one_key": lambda rng: _tables(rng, 700, 900, lkeys=1, rkeys=1),
+    "pad_tail": lambda rng: _tables(rng, 500, 2 * 2048 + 1),
+    "one_probe_row": _one_probe_row,
+}
 
 
 DECLINED = {  # shapes the merge plan declines: (tables, join edits)
@@ -198,17 +213,48 @@ class TestMergeProbeCountPasses:
         want = np.asarray(jmc.merge_probe_count_passes(*jplan))[:n]
         np.testing.assert_array_equal(tmc.merge_probe_count_passes(tplan).numpy(), want)
 
+    @pytest.mark.parametrize("shape", sorted(EDGE_SHAPES))
+    def test_edge_shapes_equal_jax(self, rng, shape):
+        jplan, tplan, n = _plans(*EDGE_SHAPES[shape](rng), (0, 0, 0, 0))
+        want = np.asarray(jmc.merge_probe_count_passes(*jplan))[:n]
+        got = tmc.merge_probe_count_passes(tplan)
+        assert got.dtype == torch.int32 and got.shape == (n,)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(tmc.merge_probe_count_passes_plain(tplan).numpy(), want)
+        assert want.sum() > 0
+
+    @pytest.mark.parametrize("deltas", [(0, 0, 0, 0), (0, -1, 0, -1), (1, 0, 0, -1)])
+    @pytest.mark.parametrize("shape", ["several_keys", "dense_ties"])
+    def test_plain_equals_merge_probe_count_passes(self, rng, shape, deltas):
+        lt, rt = (_tables(rng, 500, 700, lkeys=4, rkeys=6, neg=True) if shape == "several_keys"
+                  else (_dup(1200, 5), _dup(1800, 6)))
+        _, tplan, n = _plans(lt, rt, deltas)
+        got = tmc.merge_probe_count_passes_plain(tplan)
+        assert got.dtype == torch.int32 and got.shape == (n,)
+        assert torch.equal(got, tmc.merge_probe_count_passes(tplan))
+
     def test_plan_is_two_segments_of_one_launch(self, rng):
         lt, rt = _tables(rng, 300, 500)
-        _, tplan, n = _plans(lt, rt, (0, 0, 0, 0))
+        tjoin, tl, tr = _join("torch", lt, rt)
+        tplan = tjoin._merge_probe_plan(tl, tr, *tjoin._sorted_count_inputs(tl, tr))
+        n = rt.num_rows
         a, b = tplan.segplan.segs
         assert (a.strict, b.strict) == (False, True)
         assert a.n_real == b.n_real == tplan.n == n
-        assert a.ord.dtype == torch.int64 and a.ord.numel() == n
+        # ranks stored direct, in view order, into the rows of [2, n]
+        assert a.ord is None and b.ord is None
+        assert (a.out, b.out) == ((2, 0), (2, n))
+        assert tplan.segplan.need[2] == (torch.int32, 2 * n)
         # the build views are the tables, packed with PROBE_PAD; the probe
         # views the queries, packed with BUILD_PAD by the caller
         assert a.raw[3] == b.raw[3] == tmc.PROBE_PAD
-        assert (a.out, b.out) == ((2, 0), (2, n))
+        # the un-permute reads the probe table's cached int32 inverse orders
+        assert tplan.inv_qe is tr.sorted_interval_inverse(0, 2, "cpu")
+        assert tplan.inv_qs is tr.sorted_interval_inverse(0, 1, "cpu")
+        for inv, col in ((tplan.inv_qe, 2), (tplan.inv_qs, 1)):
+            assert inv.dtype == torch.int32 and inv.shape == (n,)
+            np.testing.assert_array_equal(inv.numpy()[tr.sorted_interval_order(0, col)],
+                                          np.arange(n))
 
     def test_build_pad_rows_count_in_neither_pass(self, rng):
         """The build views keep their PAD tails, which pack to PROBE_PAD,
@@ -224,6 +270,54 @@ class TestMergeProbeCountPasses:
         real = tplan._replace(segplan=tmc.plan_segments(real, "cpu"))
         np.testing.assert_array_equal(tmc.merge_probe_count_passes(tplan).numpy(), want)
         np.testing.assert_array_equal(tmc.merge_probe_count_passes(real).numpy(), want)
+
+
+def _ranks_and_inverses(rng, n):
+    ranks = torch.from_numpy(rng.integers(0, 2**31 - 1, (2, n)).astype(np.int32))
+    inv_e, inv_s = (torch.from_numpy(rng.permutation(n).astype(np.int32)) for _ in range(2))
+    return ranks, inv_e, inv_s
+
+
+class TestUnpermuteCounts:
+    @pytest.mark.parametrize("n", [1, 2, 257, 5000])
+    def test_equals_numpy(self, rng, n):
+        ranks, inv_e, inv_s = _ranks_and_inverses(rng, n)
+        got = tmc.unpermute_counts(ranks, inv_e, inv_s)
+        r = ranks.numpy()
+        want = r[0, inv_e.numpy()] - r[1, inv_s.numpy()]  # int32, wrapping as the kernel
+        assert got.dtype == torch.int32 and got.shape == (n,)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(tmc.unpermute_counts_plain(ranks, inv_e, inv_s).numpy(), want)
+
+    def test_empty(self):
+        ranks, inv = torch.empty((2, 0), dtype=torch.int32), torch.empty(0, dtype=torch.int32)
+        assert tmc.unpermute_counts(ranks, inv, inv).shape == (0,)
+
+    @pytest.mark.parametrize("bad", ["ranks_shape", "ranks_rows", "ranks_dtype", "ranks_strided",
+                                     "inv_length", "inv_dtype", "inv_2d", "device",
+                                     "meta_device"])
+    def test_rejects(self, rng, bad):
+        ranks, inv_e, inv_s = _ranks_and_inverses(rng, 64)
+        if bad == "ranks_shape":
+            ranks = ranks.reshape(-1)
+        elif bad == "ranks_rows":
+            ranks = ranks.reshape(4, 32)
+        elif bad == "ranks_dtype":
+            ranks = ranks.to(torch.int64)
+        elif bad == "ranks_strided":
+            ranks = ranks.t().contiguous().t()
+        elif bad == "inv_length":
+            inv_s = inv_s[:-1]
+        elif bad == "inv_dtype":
+            inv_e = inv_e.to(torch.int64)
+        elif bad == "inv_2d":
+            inv_e = inv_e.reshape(8, 8)
+        elif bad == "device":  # ranks elsewhere than the inverse orders
+            ranks = ranks.to("meta")
+        else:  # every tensor on a device with no kernel and no plain path
+            ranks, inv_e, inv_s = (t.to("meta") for t in (ranks, inv_e, inv_s))
+        with pytest.raises((TypeError, ValueError)):
+            tmc.unpermute_counts(ranks, inv_e, inv_s)
 
 
 def _sessions(lt, rt):
@@ -300,10 +394,15 @@ def test_warm_device_probe_count_launches_b1_once(rng, monkeypatch, cuda_device)
     want = _join("torch", lt, rt)[0].per_probe_counts(TorchCtx(TorchConfig()))
     join, _, _ = _join("torch", lt, rt, device=cuda_device)
     join.per_probe_counts(TorchCtx(TorchConfig()))  # plans and uploads
-    b1, packs = tmc.merge_rank_sorted.launches, tmc.pack_view.launches
+    counters = (tmc.merge_rank_sorted, tmc.pack_view, tmc.unpermute_counts)
+    before = [c.launches for c in counters]
     ctx = TorchCtx(TorchConfig())
     got = join.per_probe_counts(ctx)
     assert _route(ctx, join.op_id()) == "merge"
-    assert tmc.merge_rank_sorted.launches == b1 + 1
-    assert tmc.pack_view.launches == packs + 2
+    assert [c.launches - x for c, x in zip(counters, before)] == [1, 2, 1]
     np.testing.assert_array_equal(got, want)
+    # the un-permute kernel alone against its plain version
+    ranks, inv_e, inv_s = (t.to(cuda_device) for t in _ranks_and_inverses(rng, 70_001))
+    got = tmc.unpermute_counts(ranks, inv_e, inv_s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tmc.unpermute_counts_plain(ranks, inv_e, inv_s))

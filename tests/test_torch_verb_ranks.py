@@ -10,7 +10,8 @@ element for element, also on probes already in view order, reversed, of
 one key, one row past a 2048 multiple and of one row; the inverse-order
 cache; coverage_from_ranks against the JAX finish and the DataFrame
 coverage on the merge route against the JAX package's; the want4=False
-plan's per-probe counts against the JAX merge_probe_count_passes; the
+plan's per-probe counts (ranks in view order, then unpermute_counts)
+against the JAX merge_probe_count_passes on every shape; the
 preconditions that decline a plan.  The ``cuda`` test holds a warm
 merge_verb_rank4 to four pack_view launches, one B1 launch and one
 un-permute launch, and the un-permute kernel to its plain version.
@@ -165,6 +166,25 @@ class TestMergeVerbRank4:
         assert isinstance(tplan, tmc.ProbeCountPlan)
         want = np.asarray(jmc.merge_probe_count_passes(*jplan))[:n]
         np.testing.assert_array_equal(tmc.merge_probe_count_passes(tplan).numpy(), want)
+
+    @pytest.mark.parametrize("shape", sorted(SHAPES))
+    def test_probe_counts_equal_jax(self, rng, shape):
+        """The want4=False plan: merge_probe_count_passes (ranks in view
+        order, then unpermute_counts' plain version) and its plain twin
+        against the JAX merge_probe_count_passes, through the probe's
+        cached inverse orders."""
+        b, a = SHAPES[shape](rng)
+        (jb, ja), (tb, ta) = _pair(b, a)
+        jplan = jmc.plan_verb_ranks(jb, ja, COLS, COLS, want4=False)
+        tplan = tmc.plan_verb_ranks(tb, ta, COLS, COLS, want4=False, device="cpu")
+        n = a.num_rows
+        assert tplan.inv_qe is ta.sorted_interval_inverse(0, 2, "cpu")
+        assert tplan.inv_qs is ta.sorted_interval_inverse(0, 1, "cpu")
+        want = np.asarray(jmc.merge_probe_count_passes(*jplan))[:n]
+        got = tmc.merge_probe_count_passes(tplan)
+        assert got.dtype == torch.int32 and got.shape == (n,)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(tmc.merge_probe_count_passes_plain(tplan).numpy(), want)
 
     @pytest.mark.parametrize("want4", [False, True])
     @pytest.mark.parametrize("shape", ["empty_build", "empty_probe", "null_keys", "degenerate",

@@ -32,7 +32,12 @@ main path's shapes:
   enriched with the build): merge_verb_rank4 whole, held against
   merge_verb_rank4_plain, and a warm device coverage (host clock, median
   of 20, SEQUILA_HOST_THRESHOLD=0), its counts summing to 99,159,827;
-with the B1 and pack_view launches of one call of each.  Needs a CUDA
+- B1's per-probe mode in that direction: merge_probe_count_passes whole
+  (the count_overlaps plan, plan_verb_ranks(want4=False)), its counts
+  summing to 99,159,827, a warm device count_overlaps (host clock, median
+  of 20) and the warm grouped count ``SELECT b.contig, count(*) ... GROUP
+  BY b.contig`` on the merge route (host clock, median of 3, 24 groups);
+with the B1, pack_view and un-permute launches of one call of each.  Needs a CUDA
 device; exits non-zero without one.
 """
 
@@ -71,11 +76,15 @@ def worker() -> None:
         return start.elapsed_time(end) / REPS
 
     def launches(fn) -> dict:
-        mc.merge_rank_sorted.launches = mc.pack_view.launches = 0
+        # the un-permute kernels exist from the verb mode's and the
+        # per-probe mode's redesigns on
+        names = [k for k in ("merge_rank_sorted", "pack_view", "unpermute_ranks",
+                             "unpermute_counts") if hasattr(mc, k)]
+        for k in names:
+            getattr(mc, k).launches = 0
         fn()
         torch.cuda.synchronize()
-        return {"merge_rank_sorted": mc.merge_rank_sorted.launches,
-                "pack_view": mc.pack_view.launches}
+        return {k: getattr(mc, k).launches for k in names}
 
     def session(t1, t2):
         ctx = SessionContext(device="cuda")
@@ -119,8 +128,9 @@ def worker() -> None:
     out["count"] = int(mc.merge_count_passes(*plan))
     del plan, q1, a1, a_s, q_s, ranks
     stream_and_resident(torch, ms, ctx, out)
+    grouped(ctx, out)
     del ctx
-    verbs(torch, ms, *genome, out)
+    verbs(torch, ms, launches, *genome, out)
 
     os.environ["SEQUILA_HOST_THRESHOLD"] = "0"
     query = ("SELECT * FROM s1 a JOIN s2 b ON a.contig = b.contig "
@@ -218,9 +228,28 @@ def stream_and_resident(torch, ms, ctx, out) -> None:
             rk.rank_sorted_resident))
 
 
-def verbs(torch, ms, t1, t2, out) -> None:
-    """B1's verb mode and a warm device coverage over the genome pair,
-    each tree through its own entry points."""
+def grouped(ctx, out) -> None:
+    """The warm grouped count over the genome pair on the merge route."""
+    import numpy as np
+
+    query = ("SELECT b.contig, count(*) FROM s1 a JOIN s2 b ON a.contig = b.contig "
+             "AND a.pos_end >= b.pos_start AND a.pos_start <= b.pos_end GROUP BY b.contig")
+    os.environ["SEQUILA_HOST_THRESHOLD"] = "0"
+    ts = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        res = ctx.sql(query)
+        ts.append(time.perf_counter() - t0)
+        if res.num_rows != 24 or int(res.column_np(1).astype(np.int64).sum()) != 99_159_827:
+            sys.exit("the grouped count differs")
+    out["grouped_warm_ms"] = float(np.median(ts[1:])) * 1e3
+    del os.environ["SEQUILA_HOST_THRESHOLD"]
+
+
+def verbs(torch, ms, launches, t1, t2, out) -> None:
+    """B1's verb and per-probe modes, a warm device coverage and a warm
+    device count_overlaps over the genome pair, each tree through its own
+    entry points."""
     import numpy as np
     import pyarrow as pa
 
@@ -233,15 +262,22 @@ def verbs(torch, ms, t1, t2, out) -> None:
     if not torch.equal(mc.merge_verb_rank4(plan), mc.merge_verb_rank4_plain(plan)):
         sys.exit("merge_verb_rank4 differs from merge_verb_rank4_plain")
     out["verb_rank4_ms"] = ms(lambda: mc.merge_verb_rank4(plan))
+    pplan = mc.plan_verb_ranks(b, a, (0, 1, 2), (0, 1, 2), want4=False, device="cuda")
+    if int(mc.merge_probe_count_passes(pplan).sum()) != 99_159_827:
+        sys.exit("merge_probe_count_passes' counts differ")
+    out["probe_passes_ms"] = ms(lambda: mc.merge_probe_count_passes(pplan))
+    out["probe_passes_launches"] = launches(lambda: mc.merge_probe_count_passes(pplan))
+    del plan, pplan
     os.environ["SEQUILA_HOST_THRESHOLD"] = "0"
-    ts = []
-    for _ in range(21):
-        t0 = time.perf_counter()
-        counts = df.coverage(a, b, device="cuda").column_np("count")
-        ts.append(time.perf_counter() - t0)
-        if int(counts.sum()) != 99_159_827:
-            sys.exit("the device coverage's counts differ")
-    out["coverage_warm_ms"] = float(np.median(ts[1:])) * 1e3
+    for verb in ("coverage", "count_overlaps"):
+        ts = []
+        for _ in range(21):
+            t0 = time.perf_counter()
+            counts = getattr(df, verb)(a, b, device="cuda").column_np("count")
+            ts.append(time.perf_counter() - t0)
+            if int(counts.sum()) != 99_159_827:
+                sys.exit(f"the device {verb}'s counts differ")
+        out[f"{verb}_warm_ms"] = float(np.median(ts[1:])) * 1e3
     del os.environ["SEQUILA_HOST_THRESHOLD"]
 
 
