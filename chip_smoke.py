@@ -166,10 +166,35 @@ Phases, each of which exits non-zero when it fails:
    single-process grouped count's 24 groups, launch no hand kernel, and
    agree with the other ranks; each time is printed with the share spent
    in the collectives.  A rank that fails or runs past its timeout fails
-   the phase, and its peers are stopped.
+   the phase, and its peers are stopped;
+9. the device sweep (tools/cuda_sweep.py): each query on the forced device
+   route (SEQUILA_HOST_THRESHOLD=0) and on the host route, equal, the
+   device run with no host route metric: at tools/tpu_sweep.py's tables
+   (sorted rows) inner ``SELECT *`` under coitrees, intervaltree, lapper
+   and superintervals, LEFT, RIGHT and FULL joins, nearest, the strict
+   operators, the grouped count, ``coverage`` and ``count_overlaps``
+   (which must launch B1 on the device route); at the 15M pairing the
+   row count and checksum of inner ``SELECT *`` under the four
+   algorithms, LEFT and FULL joins and the strict operators, and the
+   grouped count's rows;
+10. the device fuzz (tools/cuda_fuzz.py, a fixed seed): random tables of
+   0 to 2^20 rows through count_overlaps, coverage, count(*) on the
+   merge, stream and cosort backends (the level route on degenerate
+   trials) and the device ``SELECT *``, against ops/oracle.py; then each
+   kernel entry against its plain version at random ragged sizes; the
+   public paths must have taken the merge, stream and level routes and
+   launched B1, pack_view, both un-permutes and B2;
+11. the kernels' memory checks (tools/cuda_sanitize.py): compute-sanitizer
+   (memcheck, racecheck, synccheck, initcheck) over the kernel rounds at
+   small shapes, each tool's error count printed, or why the sanitizer
+   could not run; and guard bands of junk around every tensor a kernel
+   reads or a caller's output slot, which must keep their bytes while
+   every result equals its plain version.
 
 ``python3 chip_smoke.py --multiprocess-only`` builds the references and
-runs phase 8b alone (for a call on several cards: one NCCL rank a card).
+runs phase 8b alone (for a call on several cards: one NCCL rank a card);
+``python3 chip_smoke.py --checks-only`` builds the kernels and runs
+phases 9-11 alone.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -2514,7 +2539,85 @@ def multiprocess_only(torch, card) -> None:
     phase_multiprocess(torch, genome, *multiprocess_refs(*ctxs), card, shapes=MP_SHAPES[1:])
 
 
-def main(only_multiprocess: bool = False) -> None:
+def phase_sweep(card) -> float:
+    print("== phase 9: the device sweep (tools/cuda_sweep.py): device routes against the "
+          "host route", flush=True)
+    from tools import cuda_sweep
+
+    t0 = time.perf_counter()
+    sw = cuda_sweep.sweep(report=lambda line: print(line, flush=True))
+    dt = time.perf_counter() - t0
+    bad = sw.failed()
+    if bad:
+        fail(f"phase 9: {len(bad)} of {len(sw.checks)} sweep checks failed: {bad}")
+    print(f"phase 9 passed: {len(sw.checks)} sweep checks in {dt:.1f} s [{card}]", flush=True)
+    return dt
+
+
+def phase_fuzz(card) -> float:
+    from tools import cuda_fuzz
+
+    print(f"== phase 10: the device fuzz (tools/cuda_fuzz.py, seed {cuda_fuzz.SEED}): public "
+          "paths against the oracle, each kernel entry against its plain version", flush=True)
+    t0 = time.perf_counter()
+    launches = reset_launches()
+    try:
+        public = cuda_fuzz.fuzz(rounds=0, report=lambda line: print(line, flush=True))
+        ran = launches()
+        kernels = cuda_fuzz.fuzz(trials=0, report=lambda line: print(line, flush=True))
+    except cuda_fuzz.FuzzFailure as e:
+        fail(f"phase 10: {e}")
+    missing = {"merge", "stream", "level"} - public["count_routes"]
+    if missing:
+        fail(f"phase 10: no trial took the count(*) route(s) {sorted(missing)}")
+    idle = [k for k in ("merge_rank_sorted", "pack_view", "unpermute_counts", "unpermute_ranks",
+                        "stream_rank_sorted") if not ran[k]]
+    if idle:
+        fail(f"phase 10: the public paths launched no {idle} ({ran})")
+    n, m = zip(*public["sizes"])
+    dt = time.perf_counter() - t0
+    print(f"phase 10 passed: {len(n)} trials (build rows {min(n)}-{max(n)}, probe rows "
+          f"{min(m)}-{max(m)}, {public['total']} matches, {public['pairs']} pairs held to the "
+          f"oracle; count routes {sorted(public['count_routes'])}; hand-kernel launches {ran}) "
+          f"and {cuda_fuzz.ROUNDS} kernel rounds (largest |diff| {kernels['err']}) in {dt:.1f} s "
+          f"[{card}]", flush=True)
+    return dt
+
+
+def phase_sanitize(card) -> float:
+    print("== phase 11: compute-sanitizer and guard bands over every hand kernel "
+          "(tools/cuda_sanitize.py)", flush=True)
+    from tools import cuda_sanitize
+
+    t0 = time.perf_counter()
+    res = cuda_sanitize.sanitize(report=lambda line: print(line, flush=True))
+    counts = {t: "not run" if isinstance(r, str) else r["errors"] for t, r in res["tools"].items()}
+    dt = time.perf_counter() - t0
+    if not res["ok"]:
+        fail(f"phase 11: the kernels' checks found a fault: tools {counts}, guard bands "
+             f"{res['guards']['faults']}")
+    print(f"phase 11 passed: compute-sanitizer {counts}; guard bands "
+          f"{res['guards']['rounds']} rounds, 0 faults; {dt:.1f} s [{card}]", flush=True)
+    return dt
+
+
+def phase_checks(card) -> None:
+    """Phases 9-11, with their wall times."""
+    times = {"9": phase_sweep(card), "10": phase_fuzz(card), "11": phase_sanitize(card)}
+    print("phases 9-11: " + ", ".join(f"phase {k} {v:.1f} s" for k, v in times.items())
+          + f" [{card}]", flush=True)
+
+
+def ok_line(torch) -> str:
+    """The last line of a run that passed."""
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }})
+
+
+def main(only_multiprocess: bool = False, only_checks: bool = False) -> None:
     import torch
 
     if not torch.cuda.is_available():
@@ -2532,13 +2635,15 @@ def main(only_multiprocess: bool = False) -> None:
     if only_multiprocess:
         multiprocess_only(torch, card)
         print(card)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu",
-            "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(),
-        }}))
+        print(ok_line(torch))
         return
     phase_build()
+    if only_checks:
+        phase_checks(card)
+        print(f"phases 1-2 and 9-11 passed in {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(ok_line(torch))
+        return
     err = phase_kernels(torch, dev)
     sessions, merge_launches = phase_main_path(torch, card)
     stream_launches = phase_backends(torch, sessions)
@@ -2565,6 +2670,7 @@ def main(only_multiprocess: bool = False) -> None:
     if mp_mat_ref != mat_ref:
         fail(f"the host route's SELECT * now gives {mp_mat_ref}, earlier {mat_ref}")
     phase_multiprocess(torch, (sessions[1][3], sessions[1][4]), mat_ref, grouped_ref, card)
+    phase_checks(card)
     if "jax" in sys.modules:
         fail("the port imported jax")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
@@ -2599,15 +2705,12 @@ def main(only_multiprocess: bool = False) -> None:
     ]}
     print(card)
     print(json.dumps(record))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
+    print(ok_line(torch))
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         rank_main(json.loads(sys.argv[2]))
     else:
-        main(only_multiprocess=sys.argv[1:] == ["--multiprocess-only"])
+        main(only_multiprocess=sys.argv[1:] == ["--multiprocess-only"],
+             only_checks=sys.argv[1:] == ["--checks-only"])

@@ -1,10 +1,11 @@
 """Build + load the native C++ host index (ctypes binding).
 
-The port shares the JAX package's C++ source: ``sequila_tpu/native/src/
-sequila_native.cc`` is found by file path (importing ``sequila_tpu`` would
-import JAX) and compiled on first use with the system toolchain into the
-port's own cache, ``sequila_tpu_torch/_build/native``, keyed by a source
-hash — the
+The port keeps its own copy of the C++ source,
+``sequila_tpu_torch/native/src/sequila_native.cc`` (byte for byte the
+JAX package's ``sequila_tpu/native/src/sequila_native.cc``;
+``tests/test_torch_native_source.py`` holds the two equal).  It is
+compiled on first use with the system toolchain into the port's own
+cache, ``sequila_tpu_torch/_build/native``, keyed by a source hash — the
 moral equivalent of the reference shipping its superintervals index as a
 compiled extension (reference superintervals/setup.py builds the Cython/
 C++ wheel).  `SEQUILA_NATIVE=0` disables the native path (pure NumPy
@@ -21,8 +22,7 @@ import threading
 import numpy as np
 
 _SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "sequila_tpu", "native", "src", "sequila_native.cc",
+    os.path.dirname(os.path.abspath(__file__)), "src", "sequila_native.cc"
 )
 _LOCK = threading.Lock()
 _LIB = None

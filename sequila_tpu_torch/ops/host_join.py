@@ -5,7 +5,7 @@ seconds against a remote TPU — which dwarfs tiny interactive queries (the
 reference's 12-row fixtures answer in microseconds on a CPU).  Below a row
 threshold the operator routes here: exact same semantics (end-inclusive
 i32, degenerate-query stabbing matches, nearest/NULL rules), vectorized
-NumPy on int64 composites.  The native C++ library (sequila_tpu/native)
+NumPy on int64 composites.  The native C++ library (sequila_tpu_torch/native)
 replaces the inner loops of this path when built.
 
 This mirrors the reference's own layering: its per-chromosome indexes are
@@ -25,7 +25,7 @@ def _comp(keys, vals):
 
 
 def make_host_index(keys, starts, ends):
-    """Native C++ index when available (sequila_tpu/native), else NumPy."""
+    """Native C++ index when available (sequila_tpu_torch/native), else NumPy."""
     try:
         from sequila_tpu_torch.native.loader import NativeIntervalIndex, available
 
