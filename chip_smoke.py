@@ -203,6 +203,7 @@ repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -514,12 +515,12 @@ def pair_edge_cases(torch, dev, rng, err):
                  torch.zeros(len(cases), dtype=torch.int64, device=dev),
                  *(torch.cat(c) for c in cols[4:]))
         want = tuple(t.clone() for t in slots)
-        before = pm.pair_merge_segments.launches
+        launches = reset_launches()
         pm.pair_merge_segments(pm.plan_pair_segments(segs, dev), slots)
         torch.cuda.synchronize()
-        if pm.pair_merge_segments.launches != before + 1:
-            fail(f"pair merge edge segments: {pm.pair_merge_segments.launches - before} "
-                 "launches, not 1")
+        ran = launches()["pair_merge"]
+        if ran != 1:
+            fail(f"pair merge edge segments: {ran} launches, not 1")
         pm.pair_segments_plain(segs, want)
         d = max(max_diff(torch, g, w) for g, w in zip(slots, want))
         err["stream_rank_sorted"] = max(err["stream_rank_sorted"], d)
@@ -540,11 +541,12 @@ def check_segments(torch, label, segs, slots, err):
     from sequila_tpu_torch.ops.cuda import merge_count as mc
 
     want = tuple(t.clone() for t in slots)
-    before = mc.merge_rank_sorted.launches
+    launches = reset_launches()
     mc.merge_rank_segments(mc.plan_segments(segs, slots[0].device), slots)
     torch.cuda.synchronize()
-    if mc.merge_rank_sorted.launches != before + 1:
-        fail(f"segmented {label}: {mc.merge_rank_sorted.launches - before} launches, not 1")
+    ran = launches()["merge_path"]
+    if ran != 1:
+        fail(f"segmented {label}: {ran} launches, not 1")
     mc.merge_rank_segments_plain(segs, want)
     d = max(max_diff(torch, g, w) for g, w in zip(slots, want))
     err["merge_rank_sorted"] = max(err["merge_rank_sorted"], d)
@@ -682,20 +684,25 @@ def time_kernel(torch, name, plain, kern, library, nbytes_, ops, shape, card) ->
             "bound_by": b_by}
 
 
-def reset_launches():
-    from sequila_tpu_torch.ops.cuda import merge_count as mc
-    from sequila_tpu_torch.ops.cuda import rank_kernel as rk
-    from sequila_tpu_torch.ops.cuda import stream_rank as sr
+# the hand kernels' launch counters (utils/metrics: ``launch.<kernel>``);
+# pair_merge is B2's and B3's one launch
+LAUNCHES = ("merge_path", "pack_view", "unpermute_ranks", "unpermute_counts", "pair_merge")
 
-    wrappers = {
-        "merge_rank_sorted": mc.merge_rank_sorted, "pack_view": mc.pack_view,
-        "unpermute_ranks": mc.unpermute_ranks, "unpermute_counts": mc.unpermute_counts,
-        "stream_rank_sorted": sr.stream_rank_sorted,
-        "rank_sorted_resident": rk.rank_sorted_resident,
-    }
-    for w in wrappers.values():
-        w.launches = 0
-    return lambda: {name: w.launches for name, w in wrappers.items()}
+
+def reset_launches():
+    """Record the program's counters from here; the function it returns
+    stops recording and gives each hand kernel's launches since."""
+    from sequila_tpu_torch.utils import metrics
+
+    block = contextlib.ExitStack()
+    rec = block.enter_context(metrics.recording())
+
+    def read() -> dict:
+        block.close()  # a second close does nothing
+        got = rec.counts()
+        return {k: got[f"launch.{k}"] for k in LAUNCHES}
+
+    return read
 
 
 def route_of(session, kind: str = "count") -> str:
@@ -762,7 +769,7 @@ def phase_main_path(torch, card):
     torch.cuda.synchronize()
     merge_launches = launches()
     print(f"main path counts correct on the merge route; kernel launches: {merge_launches}")
-    for kname in ("pack_view", "merge_rank_sorted"):
+    for kname in ("pack_view", "merge_path"):
         if merge_launches[kname] <= 0:
             fail(f"kernel {kname} was not launched by the main path")
     # a warm count(*): both BITS passes in one segmented B1 launch
@@ -772,7 +779,7 @@ def phase_main_path(torch, card):
         fail(f"{name}: the warm query's count differs")
     torch.cuda.synchronize()
     warm = launches()
-    if (warm["merge_rank_sorted"], warm["pack_view"]) != (1, 4):
+    if (warm["merge_path"], warm["pack_view"]) != (1, 4):
         fail(f"a warm merge count(*) launched {warm}, expected B1 once and pack_view 4 times")
     print(f"warm {name} count(*): B1 launched once, pack_view 4 times")
     return sessions, merge_launches
@@ -806,13 +813,13 @@ def phase_backends(torch, sessions):
                 fail(f"{name} backend=stream: the warm query's count differs")
             torch.cuda.synchronize()
             warm = warm()
-            if warm != {**dict.fromkeys(warm, 0), "stream_rank_sorted": 1}:
+            if warm != {**dict.fromkeys(warm, 0), "pair_merge": 1}:
                 fail(f"a warm stream count(*) launched {warm}, expected B2 once and nothing else")
             print(f"warm {name} stream count(*): B2 launched once (both passes)")
     del os.environ["SEQUILA_COUNT_BACKEND"]
-    if out["stream"]["stream_rank_sorted"] <= 0:
+    if out["stream"]["pair_merge"] <= 0:
         fail("kernel stream_rank_sorted was not launched by the stream route")
-    if out["cosort"]["merge_rank_sorted"] or out["cosort"]["stream_rank_sorted"]:
+    if out["cosort"]["merge_path"] or out["cosort"]["pair_merge"]:
         fail(f"the cosort route launched a rank kernel: {out['cosort']}")
     return out["stream"]
 
@@ -891,7 +898,7 @@ def phase_resident(torch, dev):
             fail(f"rank_lex_resident side={side}: max |diff| {d} against rank_lex_sort")
     print(f"rank_lex_resident n={n} m={m}: equal to rank_lex_sort on both sides; "
           f"launches {ran}")
-    if ran["rank_sorted_resident"] <= 0:
+    if ran["pair_merge"] <= 0:
         fail("kernel rank_sorted_resident was not launched by rank_lex_resident")
     return ran, cols
 
@@ -963,11 +970,11 @@ def phase_times(torch, sessions, card, err, resident_cols):
     u_total = torch.zeros(1, dtype=torch.int64, device=a1.device)
     b2_launch = pm.segments_launcher(
         pm._rank_plan(pass_u[0].shape[1], pass_u[3].numel(), False, True, True, a1.device),
-        (pass_u[0][0], pass_u[0][1], *pass_u[3:], u_total, *pass_u[1:3]), sr.stream_rank_sorted)
+        (pass_u[0][0], pass_u[0][1], *pass_u[3:], u_total, *pass_u[1:3]))
     r_ranks = torch.empty(r_k.numel(), dtype=torch.int32, device=r_k.device)
     b3_launch = pm.segments_launcher(
         pm._rank_plan(a_k.numel(), r_k.numel(), True, False, False, a_k.device),
-        (a_k, a_v, r_k, r_v, r_ranks), rk.rank_sorted_resident)
+        (a_k, a_v, r_k, r_v, r_ranks))
     cases = {  # name: (plain, kernel, library or None, bytes moved, operations, shape)
         "pack_view": (
             lambda: mc.pack_view_plain(pq_k, pq_v, c_pq, mc.PROBE_PAD),
@@ -1082,7 +1089,7 @@ def phase_grouped(torch, sessions, card, err):
         return counts, (time.perf_counter() - t0) * 1e3
 
     os.environ["SEQUILA_HOST_THRESHOLD"] = "0"
-    kernels = ("merge_rank_sorted", "pack_view", "unpermute_counts")
+    kernels = ("merge_path", "pack_view", "unpermute_counts")
     launches = reset_launches()
     merge_out, cold = grouped("merge")
     torch.cuda.synchronize()
@@ -1379,7 +1386,7 @@ def phase_materialize(torch, card):
     torch.cuda.synchronize()
     ran = launches()
     print(f"device merge route: kernel launches {ran}")
-    if (ran["merge_rank_sorted"], ran["pack_view"]) != (1, 2):
+    if (ran["merge_path"], ran["pack_view"]) != (1, 2):
         fail(f"the device merge SELECT * launched {ran}, expected B1 once (every level, "
              "both bounds) and pack_view twice (the probe views)")
     if checksum([merge]) != ref:
@@ -1807,7 +1814,7 @@ def phase_verbs(torch, sessions, card, err):
 
     # warm device launches (B1, pack_view, un-permute) of each verb
     verbs = {"count_overlaps": (1, 2, 0, 1), "coverage": (1, 4, 1, 0)}
-    kernels = ("merge_rank_sorted", "pack_view", "unpermute_ranks", "unpermute_counts")
+    kernels = ("merge_path", "pack_view", "unpermute_ranks", "unpermute_counts")
     # B1 and un-permute launches of the device coverage calls (the kernels line)
     verb_b1 = verb_unpermute = 0
 
@@ -1835,7 +1842,7 @@ def phase_verbs(torch, sessions, card, err):
                 fail(f"the host route's {verb} ({label}) launched {one}")
         check(f"{label} warm call, route {route}", out, verb)
         if route == "device" and verb == "coverage" and label == "DataFrame":
-            verb_b1, verb_unpermute = total["merge_rank_sorted"], total["unpermute_ranks"]
+            verb_b1, verb_unpermute = total["merge_path"], total["unpermute_ranks"]
         warm = float(np.median(ts)) * 1e3
         print(f"{verb} ({label}), route {route}: equal to the native host index; first call "
               f"{first * 1e3:.3f} ms (launches {ran}), warm median {warm:.3f} ms over "
@@ -1872,7 +1879,7 @@ def phase_verbs(torch, sessions, card, err):
 
     kernel_ms = verb_mode(torch, a, b, want_counts, card, err)
     os.environ.pop("SEQUILA_HOST_THRESHOLD", None)
-    return {"merge_rank_sorted": verb_b1, "unpermute_ranks": verb_unpermute}, kernel_ms
+    return {"merge_path": verb_b1, "unpermute_ranks": verb_unpermute}, kernel_ms
 
 
 def verb_split(torch, plan, packed, orders, want, card) -> None:
@@ -2570,8 +2577,8 @@ def phase_fuzz(card) -> float:
     missing = {"merge", "stream", "level"} - public["count_routes"]
     if missing:
         fail(f"phase 10: no trial took the count(*) route(s) {sorted(missing)}")
-    idle = [k for k in ("merge_rank_sorted", "pack_view", "unpermute_counts", "unpermute_ranks",
-                        "stream_rank_sorted") if not ran[k]]
+    idle = [k for k in ("merge_path", "pack_view", "unpermute_counts", "unpermute_ranks",
+                        "pair_merge") if not ran[k]]
     if idle:
         fail(f"phase 10: the public paths launched no {idle} ({ran})")
     n, m = zip(*public["sizes"])
@@ -2681,15 +2688,15 @@ def main(only_multiprocess: bool = False, only_checks: bool = False) -> None:
     # coverage calls of 5h, B2 from the stream route, B3 from
     # rank_lex_resident
     launches = {
-        "merge_rank_sorted": merge_launches["merge_rank_sorted"],
-        "merge_level_ranks": mat_launches["merge_rank_sorted"],
-        "merge_probe_ranks": probe_launches["merge_rank_sorted"],
+        "merge_rank_sorted": merge_launches["merge_path"],
+        "merge_level_ranks": mat_launches["merge_path"],
+        "merge_probe_ranks": probe_launches["merge_path"],
         "unpermute_counts": probe_launches["unpermute_counts"],
-        "merge_verb_ranks": verb_launches["merge_rank_sorted"],
+        "merge_verb_ranks": verb_launches["merge_path"],
         "unpermute_ranks": verb_launches["unpermute_ranks"],
         "pack_view": merge_launches["pack_view"],
-        "stream_rank_sorted": stream_launches["stream_rank_sorted"],
-        "rank_sorted_resident": resident_launches["rank_sorted_resident"],
+        "stream_rank_sorted": stream_launches["pair_merge"],
+        "rank_sorted_resident": resident_launches["pair_merge"],
     }
     record = {"kernels": [
         {

@@ -24,6 +24,10 @@ index's torch ops on the device route.  ``partitions > 1`` (Partitioned
 mode) runs overlap, count_overlaps, coverage, map_overlaps and window as
 shard programs over a mesh of the verb's device type (parallel/), as the
 JAX package runs them over its mesh.
+
+Each verb is recorded as the span ``verb.<name>`` (utils/metrics), its
+Arrow output as ``verb.assemble``, and a verb that routes counts the
+route that answered: ``verb_route_<host|merge|level|partitioned>``.
 """
 
 from __future__ import annotations
@@ -39,8 +43,13 @@ from sequila_tpu_torch.models.table import Table, encode_join_keys
 from sequila_tpu_torch.ops import genomic
 from sequila_tpu_torch.ops.interval_index import build_interval_index
 from sequila_tpu_torch.ops.interval_join import count_matches, materialize_pairs, nearest_match
+from sequila_tpu_torch.utils.metrics import count, span, to_device, to_host
 
 DEFAULT_COLS = ("contig", "pos_start", "pos_end")
+
+
+def _route(name: str) -> None:
+    count(f"verb_route_{name}")
 
 
 def _device(device) -> torch.device:
@@ -201,9 +210,8 @@ def _pair_host_index(entry: dict):
     if entry.get("hidx") is None:
         from sequila_tpu_torch.ops.host_join import make_host_index
 
-        entry["hidx"] = make_host_index(
-            entry["cb"], entry["sb"], entry["eb"]
-        )
+        with span("host_index.build", rows=len(entry["cb"])):
+            entry["hidx"] = make_host_index(entry["cb"], entry["sb"], entry["eb"])
     return entry["hidx"]
 
 
@@ -222,7 +230,7 @@ def _pair_index(entry: dict, host: bool = False):
 
 def _on_device(entry: dict, *arrays):
     """Host int32 query columns as tensors on the entry's device."""
-    return tuple(torch.tensor(np.asarray(x, np.int32), device=entry["device"]) for x in arrays)
+    return tuple(to_device(np.asarray(x, np.int32), entry["device"]) for x in arrays)
 
 
 def _encode_pair(entry: dict):
@@ -240,13 +248,16 @@ def _gather_pairs(a, b, ca, sa, ea, entry, partitions: int):
 
         b_rows, p_rows = partitioned_pairs(mesh, entry["cb"], entry["sb"], entry["eb"], ca, sa, ea)
         order = np.lexsort((b_rows, p_rows))
+        _route("partitioned")
         return b_rows[order], p_rows[order]
     # materializing verbs route by the link-vs-host cost model: the pair
     # indices cross to the host either way (see materialize_route_host)
     from sequila_tpu_torch.exec.joins.interval_join import materialize_route_host
 
     if materialize_route_host(b.num_rows, a.num_rows):
+        _route("host")
         return _pair_host_index(entry).pairs(ca, sa, ea)
+    _route("level")
     b_rows, p_rows, _total = materialize_pairs(
         _pair_index(entry), *_on_device(entry, ca, sa, ea)
     )
@@ -256,13 +267,14 @@ def _gather_pairs(a, b, ca, sa, ea, entry, partitions: int):
 def _pairs_to_table(a: Table, b: Table, p_rows, b_rows) -> Table:
     """(a_row ++ b_row) output assembly shared by the pair verbs:
     gather both sides, '_b'-suffix b's name collisions."""
-    at = a.take(np.asarray(p_rows, np.int64))
-    bt = b.take(np.asarray(b_rows, np.int64))
-    arrays = list(at.arrow.columns) + list(bt.arrow.columns)
-    names = at.column_names + [
-        f"{n}_b" if n in at.column_names else n for n in bt.column_names
-    ]
-    return Table(pa.Table.from_arrays(arrays, names=names))
+    with span("verb.assemble", rows=len(p_rows)):
+        at = a.take(np.asarray(p_rows, np.int64))
+        bt = b.take(np.asarray(b_rows, np.int64))
+        arrays = list(at.arrow.columns) + list(bt.arrow.columns)
+        names = at.column_names + [
+            f"{n}_b" if n in at.column_names else n for n in bt.column_names
+        ]
+        return Table(pa.Table.from_arrays(arrays, names=names))
 
 
 def overlap(a: Table, b: Table, cols: tuple = DEFAULT_COLS, cols_b=None,
@@ -273,12 +285,13 @@ def overlap(a: Table, b: Table, cols: tuple = DEFAULT_COLS, cols_b=None,
     (probe order preserved).
 
     ``partitions > 1`` executes over a device mesh."""
-    dev = _device(device)
-    cols_b = cols_b or cols
-    entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col, dev)
-    ca, sa, ea, _, _, _ = _encode_pair(entry)
-    b_rows, p_rows = _gather_pairs(a, b, ca, sa, ea, entry, partitions)
-    return _pairs_to_table(a, b, p_rows, b_rows)
+    with span("verb.overlap"):
+        dev = _device(device)
+        cols_b = cols_b or cols
+        entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col, dev)
+        ca, sa, ea, _, _, _ = _encode_pair(entry)
+        b_rows, p_rows = _gather_pairs(a, b, ca, sa, ea, entry, partitions)
+        return _pairs_to_table(a, b, p_rows, b_rows)
 
 
 def _merge_verb_plan(entry: dict, b: Table, a: Table, cols_b, cols_a,
@@ -316,35 +329,38 @@ def count_overlaps(a: Table, b: Table, cols: tuple = DEFAULT_COLS, cols_b=None,
 
     ``partitions > 1`` executes over a device mesh (the engine's
     Partitioned mode; shrinks to the available devices)."""
-    dev = _device(device)
-    cols_b = cols_b or cols
-    entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col, dev)
-    ca, sa, ea, cb, sb, eb = _encode_pair(entry)
-    mesh = _mesh(partitions, dev)
-    if mesh is not None:
-        from sequila_tpu_torch.parallel.partitioned_join import partitioned_probe_counts
+    with span("verb.count_overlaps"):
+        dev = _device(device)
+        cols_b = cols_b or cols
+        entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col, dev)
+        ca, sa, ea, cb, sb, eb = _encode_pair(entry)
+        mesh = _mesh(partitions, dev)
+        if mesh is not None:
+            from sequila_tpu_torch.parallel.partitioned_join import partitioned_probe_counts
 
-        counts = partitioned_probe_counts(mesh, cb, sb, eb, ca, sa, ea)
-    elif _route_perprobe_host(a, b, entry):
-        counts = np.asarray(_pair_host_index(entry).counts(ca, sa, ea))
-    else:
-        counts = None
-        if strand is None and _merge_backend():
-            # sort-free merge rank passes over cached sorted views (the
-            # same backend as the SQL operator's CountOverlaps path)
-            plan = _merge_verb_plan(entry, b, a, cols_b, cols, want4=False)
-            if plan is not None:
-                from sequila_tpu_torch.ops.cuda import merge_count as mc
+            counts, route = partitioned_probe_counts(mesh, cb, sb, eb, ca, sa, ea), "partitioned"
+        elif _route_perprobe_host(a, b, entry):
+            counts, route = np.asarray(_pair_host_index(entry).counts(ca, sa, ea)), "host"
+        else:
+            counts = None
+            if strand is None and _merge_backend():
+                # sort-free merge rank passes over cached sorted views (the
+                # same backend as the SQL operator's CountOverlaps path)
+                plan = _merge_verb_plan(entry, b, a, cols_b, cols, want4=False)
+                if plan is not None:
+                    from sequila_tpu_torch.ops.cuda import merge_count as mc
 
-                counts = mc.merge_probe_count_passes(plan).cpu().numpy()
-        if counts is None:
-            deg = bool((sa > ea).any())
-            b_inv = bool((eb < sb).any())
-            counts = count_matches(
-                _pair_index(entry), *_on_device(entry, ca, sa, ea),
-                "sort" if deg or b_inv else "bits",
-            ).cpu().numpy()
-    return Table(a.arrow.append_column(out_col, pa.array(counts.astype(np.int64))))
+                    counts, route = to_host(mc.merge_probe_count_passes(plan)), "merge"
+            if counts is None:
+                deg = bool((sa > ea).any())
+                b_inv = bool((eb < sb).any())
+                counts, route = to_host(count_matches(
+                    _pair_index(entry), *_on_device(entry, ca, sa, ea),
+                    "sort" if deg or b_inv else "bits",
+                )), "level"
+        _route(route)
+        with span("verb.assemble", rows=a.num_rows):
+            return Table(a.arrow.append_column(out_col, pa.array(counts.astype(np.int64))))
 
 
 def nearest(a: Table, b: Table, cols: tuple = DEFAULT_COLS, cols_b=None,
@@ -352,25 +368,29 @@ def nearest(a: Table, b: Table, cols: tuple = DEFAULT_COLS, cols_b=None,
     """One row per a-row: first overlapping b interval, else the nearest;
     NULL b-side when a's contig is absent from b (the reference's
     CoitreesNearest semantics with build/probe sides swapped to 'enrich a')."""
-    dev = _device(device)
-    cols_b = cols_b or cols
-    entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col, dev)
-    ca, sa, ea, _, _, _ = _encode_pair(entry)
-    from sequila_tpu_torch.exec.joins.interval_join import materialize_route_host
+    with span("verb.nearest"):
+        dev = _device(device)
+        cols_b = cols_b or cols
+        entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col, dev)
+        ca, sa, ea, _, _, _ = _encode_pair(entry)
+        from sequila_tpu_torch.exec.joins.interval_join import materialize_route_host
 
-    if materialize_route_host(b.num_rows, a.num_rows):
-        rows = _pair_host_index(entry).nearest(ca, sa, ea).astype(np.int64)
-    else:
-        rows = nearest_match(
-            _pair_index(entry), *_on_device(entry, ca, sa, ea)
-        ).cpu().numpy().astype(np.int64)
-    null_mask = rows < 0
-    bt = b.take(np.where(null_mask, 0, rows), null_mask)
-    arrays = list(a.arrow.columns) + list(bt.arrow.columns)
-    names = a.column_names + [
-        f"{n}_b" if n in a.column_names else n for n in bt.column_names
-    ]
-    return Table(pa.Table.from_arrays(arrays, names=names))
+        if materialize_route_host(b.num_rows, a.num_rows):
+            _route("host")
+            rows = _pair_host_index(entry).nearest(ca, sa, ea).astype(np.int64)
+        else:
+            _route("level")
+            rows = to_host(nearest_match(
+                _pair_index(entry), *_on_device(entry, ca, sa, ea)
+            )).astype(np.int64)
+        with span("verb.assemble", rows=a.num_rows):
+            null_mask = rows < 0
+            bt = b.take(np.where(null_mask, 0, rows), null_mask)
+            arrays = list(a.arrow.columns) + list(bt.arrow.columns)
+            names = a.column_names + [
+                f"{n}_b" if n in a.column_names else n for n in bt.column_names
+            ]
+            return Table(pa.Table.from_arrays(arrays, names=names))
 
 
 def closest(a: Table, b: Table, k: int = 1, cols: tuple = DEFAULT_COLS,
@@ -379,61 +399,66 @@ def closest(a: Table, b: Table, k: int = 1, cols: tuple = DEFAULT_COLS,
     """k closest b intervals per a row (overlaps first, ties upstream
     first), with a distance column; rows with no same-contig b interval
     produce no output (bedtools `closest -k` flavor)."""
-    dev = _device(device)
-    cols_b = cols_b or cols
-    entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col, dev)
-    ca, sa, ea, cb, sb, eb = _encode_pair(entry)
-    if k == 1:
-        # vectorized: the nearest reduction (device) / host nearest —
-        # exactly one candidate per a-row, rows with no same-contig b drop out
-        from sequila_tpu_torch.exec.joins.interval_join import nearest_route_host
+    with span("verb.closest"):
+        dev = _device(device)
+        cols_b = cols_b or cols
+        entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col, dev)
+        ca, sa, ea, cb, sb, eb = _encode_pair(entry)
+        if k == 1:
+            # vectorized: the nearest reduction (device) / host nearest —
+            # exactly one candidate per a-row, rows with no same-contig b drop out
+            from sequila_tpu_torch.exec.joins.interval_join import nearest_route_host
 
-        if nearest_route_host(b.num_rows, a.num_rows):
-            rows1 = _pair_host_index(entry).nearest(ca, sa, ea)
-        else:
-            rows1 = nearest_match(
-                _pair_index(entry), *_on_device(entry, ca, sa, ea)
-            ).cpu().numpy().astype(np.int64)
-        keep = rows1 >= 0
-        a_idx = np.nonzero(keep)[0]
-        b_idx = rows1[keep]
-        dist = np.where(
-            eb[b_idx] < sa[a_idx],
-            sa[a_idx].astype(np.int64) - eb[b_idx],
-            np.maximum(sb[b_idx].astype(np.int64) - ea[a_idx], 0),
-        )
-    else:
-        from sequila_tpu_torch.native.loader import available
-
-        clean = not bool((sa > ea).any()) and not bool((eb < sb).any())
-        if available() and clean:
-            # threaded native 3-ring merge (O(log n + k) per probe) —
-            # ~16x the vectorized numpy path at 500k x 500k
-            rows, dists = _pair_host_index(entry).closest_k(ca, sa, ea, k)
-        else:
-            # closest_k is host-side vectorized numpy over the index's
-            # numpy twins: a CPU index, nothing uploaded
-            rows, dists = genomic.closest_k(
-                _pair_index(entry, host=True), np.asarray(ca), np.asarray(sa),
-                np.asarray(ea), k=k,
+            if nearest_route_host(b.num_rows, a.num_rows):
+                _route("host")
+                rows1 = _pair_host_index(entry).nearest(ca, sa, ea)
+            else:
+                _route("level")
+                rows1 = to_host(nearest_match(
+                    _pair_index(entry), *_on_device(entry, ca, sa, ea)
+                )).astype(np.int64)
+            keep = rows1 >= 0
+            a_idx = np.nonzero(keep)[0]
+            b_idx = rows1[keep]
+            dist = np.where(
+                eb[b_idx] < sa[a_idx],
+                sa[a_idx].astype(np.int64) - eb[b_idx],
+                np.maximum(sb[b_idx].astype(np.int64) - ea[a_idx], 0),
             )
-        valid = rows >= 0
-        a_idx, _ = np.nonzero(valid)  # row-major: (a row asc, rank asc)
-        b_idx = rows[valid]
-        dist = dists[valid]
-    at = a.take(np.asarray(a_idx, np.int64))
-    bt = b.take(np.asarray(b_idx, np.int64))
-    arrays = (
-        list(at.arrow.columns)
-        + list(bt.arrow.columns)
-        + [pa.array(np.asarray(dist, np.int64))]
-    )
-    names = (
-        at.column_names
-        + [f"{n}_b" if n in at.column_names else n for n in bt.column_names]
-        + [dist_col]
-    )
-    return Table(pa.Table.from_arrays(arrays, names=names))
+        else:
+            from sequila_tpu_torch.native.loader import available
+
+            clean = not bool((sa > ea).any()) and not bool((eb < sb).any())
+            _route("host")
+            if available() and clean:
+                # threaded native 3-ring merge (O(log n + k) per probe) —
+                # ~16x the vectorized numpy path at 500k x 500k
+                rows, dists = _pair_host_index(entry).closest_k(ca, sa, ea, k)
+            else:
+                # closest_k is host-side vectorized numpy over the index's
+                # numpy twins: a CPU index, nothing uploaded
+                rows, dists = genomic.closest_k(
+                    _pair_index(entry, host=True), np.asarray(ca), np.asarray(sa),
+                    np.asarray(ea), k=k,
+                )
+            valid = rows >= 0
+            a_idx, _ = np.nonzero(valid)  # row-major: (a row asc, rank asc)
+            b_idx = rows[valid]
+            dist = dists[valid]
+        with span("verb.assemble", rows=len(a_idx)):
+            at = a.take(np.asarray(a_idx, np.int64))
+            bt = b.take(np.asarray(b_idx, np.int64))
+            arrays = (
+                list(at.arrow.columns)
+                + list(bt.arrow.columns)
+                + [pa.array(np.asarray(dist, np.int64))]
+            )
+            names = (
+                at.column_names
+                + [f"{n}_b" if n in at.column_names else n for n in bt.column_names]
+                + [dist_col]
+            )
+            return Table(pa.Table.from_arrays(arrays, names=names))
 
 
 def _view_prefix(b: Table, key_col: int, val_col: int, device) -> torch.Tensor:
@@ -453,46 +478,53 @@ def coverage(a: Table, b: Table, cols: tuple = DEFAULT_COLS, cols_b=None,
     bases = sum(min(end_i,qe) - max(start_i,qs))).
 
     ``partitions > 1`` executes over a device mesh."""
-    dev = _device(device)
-    cols_b = cols_b or cols
-    entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col, dev)
-    ca, sa, ea, cb, sb, eb = _encode_pair(entry)
-    mesh = _mesh(partitions, dev)
-    if mesh is not None:
-        from sequila_tpu_torch.parallel.partitioned_join import partitioned_coverage
+    with span("verb.coverage"):
+        dev = _device(device)
+        cols_b = cols_b or cols
+        entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col, dev)
+        ca, sa, ea, cb, sb, eb = _encode_pair(entry)
+        mesh = _mesh(partitions, dev)
+        if mesh is not None:
+            from sequila_tpu_torch.parallel.partitioned_join import partitioned_coverage
 
-        counts, bases = partitioned_coverage(mesh, cb, sb, eb, ca, sa, ea)
-    elif _route_perprobe_host(a, b, entry):
-        hidx = _pair_host_index(entry)
-        if hasattr(hidx, "coverage"):
-            counts, bases = hidx.coverage(ca, sa, ea)
-        else:  # NumPy fallback host index has no coverage; use kernels
-            counts, bases = genomic.coverage(
-                build_interval_index(cb, sb, eb, device=dev), ca, sa, ea
-            )
-    else:
-        counts = None
-        if strand is None and _merge_backend():
-            plan = _merge_verb_plan(entry, b, a, cols_b, cols, want4=True)
-            if plan is not None:
-                from sequila_tpu_torch.ops.cuda import merge_count as mc
-
-                ranks = mc.merge_verb_rank4(plan)
-                prefix = entry.get("merge_cov_prefix")
-                if prefix is None:
-                    ib = tuple(b.column_names.index(c) for c in cols_b)
-                    prefix = entry["merge_cov_prefix"] = (
-                        _view_prefix(b, ib[0], ib[1], dev),
-                        _view_prefix(b, ib[0], ib[2], dev),
-                    )
-                counts, bases = mc.coverage_from_ranks(
-                    ranks, a.device_i32(cols[1], dev), a.device_i32(cols[2], dev), *prefix
+            counts, bases = partitioned_coverage(mesh, cb, sb, eb, ca, sa, ea)
+            _route("partitioned")
+        elif _route_perprobe_host(a, b, entry):
+            hidx = _pair_host_index(entry)
+            if hasattr(hidx, "coverage"):
+                counts, bases = hidx.coverage(ca, sa, ea)
+                _route("host")
+            else:  # NumPy fallback host index has no coverage; use kernels
+                counts, bases = genomic.coverage(
+                    build_interval_index(cb, sb, eb, device=dev), ca, sa, ea
                 )
-        if counts is None:
-            counts, bases = genomic.coverage(_pair_index(entry), ca, sa, ea)
-    t = a.arrow.append_column("count", pa.array(counts))
-    t = t.append_column("bases", pa.array(bases))
-    return Table(t)
+                _route("level")
+        else:
+            counts = None
+            if strand is None and _merge_backend():
+                plan = _merge_verb_plan(entry, b, a, cols_b, cols, want4=True)
+                if plan is not None:
+                    from sequila_tpu_torch.ops.cuda import merge_count as mc
+
+                    ranks = mc.merge_verb_rank4(plan)
+                    prefix = entry.get("merge_cov_prefix")
+                    if prefix is None:
+                        ib = tuple(b.column_names.index(c) for c in cols_b)
+                        prefix = entry["merge_cov_prefix"] = (
+                            _view_prefix(b, ib[0], ib[1], dev),
+                            _view_prefix(b, ib[0], ib[2], dev),
+                        )
+                    counts, bases = mc.coverage_from_ranks(
+                        ranks, a.device_i32(cols[1], dev), a.device_i32(cols[2], dev), *prefix
+                    )
+                    _route("merge")
+            if counts is None:
+                counts, bases = genomic.coverage(_pair_index(entry), ca, sa, ea)
+                _route("level")
+        with span("verb.assemble", rows=a.num_rows):
+            t = a.arrow.append_column("count", pa.array(counts))
+            t = t.append_column("bases", pa.array(bases))
+            return Table(t)
 
 
 def cluster(a: Table, min_dist: int = 0, cols: tuple = DEFAULT_COLS,
@@ -501,13 +533,14 @@ def cluster(a: Table, min_dist: int = 0, cols: tuple = DEFAULT_COLS,
     """a with an appended dense cluster id per row: rows whose intervals
     chain into one merged run (gaps <= min_dist) share an id (bedtools
     cluster; ``strand=True`` clusters per (contig, strand) — -s)."""
-    keys, starts, ends = _prep(a, cols)
-    key_cols = [keys]
-    if strand:
-        key_cols.append(_strand_key(a, strand_col))
-    codes, _, _ = encode_join_keys(key_cols, [k.slice(0, 0) for k in key_cols])
-    cids = genomic.cluster_intervals(codes, starts, ends, min_dist)
-    return Table(a.arrow.append_column(out_col, pa.array(cids)))
+    with span("verb.cluster"):
+        keys, starts, ends = _prep(a, cols)
+        key_cols = [keys]
+        if strand:
+            key_cols.append(_strand_key(a, strand_col))
+        codes, _, _ = encode_join_keys(key_cols, [k.slice(0, 0) for k in key_cols])
+        cids = genomic.cluster_intervals(codes, starts, ends, min_dist)
+        return Table(a.arrow.append_column(out_col, pa.array(cids)))
 
 
 def map_overlaps(a: Table, b: Table, column: str, ops=("mean",),
@@ -518,17 +551,18 @@ def map_overlaps(a: Table, b: Table, column: str, ops=("mean",),
     overlapping each a interval (bedtools map).  ``ops`` from
     count/sum/mean/min/max/median/collapse/distinct; empty groups yield
     NULL (count 0).  Output columns are named ``<column>_<op>``."""
-    dev = _device(device)
-    cols_b = cols_b or cols
-    entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col, dev)
-    ca, sa, ea, _, _, _ = _encode_pair(entry)
-    b_rows, p_rows = _gather_pairs(a, b, ca, sa, ea, entry, partitions)
-    vals = b.column_np(column)[np.asarray(b_rows, np.int64)]
-    agg = genomic.map_aggregate(p_rows, vals, a.num_rows, ops)
-    t = a.arrow
-    for op in ops:
-        t = t.append_column(f"{column}_{op}", pa.array(agg[op]))
-    return Table(t)
+    with span("verb.map_overlaps"):
+        dev = _device(device)
+        cols_b = cols_b or cols
+        entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col, dev)
+        ca, sa, ea, _, _, _ = _encode_pair(entry)
+        b_rows, p_rows = _gather_pairs(a, b, ca, sa, ea, entry, partitions)
+        vals = b.column_np(column)[np.asarray(b_rows, np.int64)]
+        agg = genomic.map_aggregate(p_rows, vals, a.num_rows, ops)
+        t = a.arrow
+        for op in ops:
+            t = t.append_column(f"{column}_{op}", pa.array(agg[op]))
+        return Table(t)
 
 
 def merge(a: Table, min_dist: int = 0, cols: tuple = DEFAULT_COLS,
@@ -537,20 +571,21 @@ def merge(a: Table, min_dist: int = 0, cols: tuple = DEFAULT_COLS,
 
     ``strand=True`` merges per (contig, strand) and keeps the strand
     column in the output (bedtools merge -s)."""
-    keys, starts, ends = _prep(a, cols)
-    key_cols = [keys]
-    if strand:
-        key_cols.append(_strand_key(a, strand_col))
-    codes = _encode_single(a, (cols[0], strand and strand_col), key_cols)
-    mk, ms, me = genomic.merge_intervals(codes, starts, ends, min_dist)
-    # decode contig codes back to values via first occurrence
-    decode = _code_decoder(a, cols[0], codes)
-    arrays = [decode(mk), pa.array(ms.astype(np.int64)), pa.array(me.astype(np.int64))]
-    names = list(cols)
-    if strand:
-        arrays.append(_code_decoder(a, strand_col, codes)(mk))
-        names.append(strand_col)
-    return Table(pa.Table.from_arrays(arrays, names=names))
+    with span("verb.merge"):
+        keys, starts, ends = _prep(a, cols)
+        key_cols = [keys]
+        if strand:
+            key_cols.append(_strand_key(a, strand_col))
+        codes = _encode_single(a, (cols[0], strand and strand_col), key_cols)
+        mk, ms, me = genomic.merge_intervals(codes, starts, ends, min_dist)
+        # decode contig codes back to values via first occurrence
+        decode = _code_decoder(a, cols[0], codes)
+        arrays = [decode(mk), pa.array(ms.astype(np.int64)), pa.array(me.astype(np.int64))]
+        names = list(cols)
+        if strand:
+            arrays.append(_code_decoder(a, strand_col, codes)(mk))
+            names.append(strand_col)
+        return Table(pa.Table.from_arrays(arrays, names=names))
 
 
 def window(a: Table, b: Table, window: int = 0, left: int | None = None,
@@ -561,17 +596,18 @@ def window(a: Table, b: Table, window: int = 0, left: int | None = None,
     ``window`` bp of a (or asymmetric ``left``/``right`` margins); the
     output keeps a's original coordinates — only the match predicate is
     widened."""
-    dev = _device(device)
-    cols_b = cols_b or cols
-    lw = window if left is None else left
-    rw = window if right is None else right
-    entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col, dev)
-    ca, sa, ea, _, _, _ = _encode_pair(entry)
-    lim = np.int64(2**31)
-    sa2 = np.clip(np.asarray(sa, np.int64) - lw, -lim, lim - 1).astype(np.int32)
-    ea2 = np.clip(np.asarray(ea, np.int64) + rw, -lim, lim - 1).astype(np.int32)
-    b_rows, p_rows = _gather_pairs(a, b, ca, sa2, ea2, entry, partitions)
-    return _pairs_to_table(a, b, p_rows, b_rows)
+    with span("verb.window"):
+        dev = _device(device)
+        cols_b = cols_b or cols
+        lw = window if left is None else left
+        rw = window if right is None else right
+        entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col, dev)
+        ca, sa, ea, _, _, _ = _encode_pair(entry)
+        lim = np.int64(2**31)
+        sa2 = np.clip(np.asarray(sa, np.int64) - lw, -lim, lim - 1).astype(np.int32)
+        ea2 = np.clip(np.asarray(ea, np.int64) + rw, -lim, lim - 1).astype(np.int32)
+        b_rows, p_rows = _gather_pairs(a, b, ca, sa2, ea2, entry, partitions)
+        return _pairs_to_table(a, b, p_rows, b_rows)
 
 
 def reldist(a: Table, b: Table, cols: tuple = DEFAULT_COLS, cols_b=None,
@@ -582,96 +618,99 @@ def reldist(a: Table, b: Table, cols: tuple = DEFAULT_COLS, cols_b=None,
     bedtools summary table (reldist bin, count, total, fraction);
     ``detail=True`` instead appends a per-row ``reldist`` column to a
     (NULL where undefined — contig absent from b or no flank)."""
-    cols_b = cols_b or cols
-    entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col)
-    ca, sa, ea, cb, sb, eb = _encode_pair(entry)
-    r = genomic.reldist(ca, sa, ea, cb, sb, eb)
-    if detail:
+    with span("verb.reldist"):
+        cols_b = cols_b or cols
+        entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col)
+        ca, sa, ea, cb, sb, eb = _encode_pair(entry)
+        r = genomic.reldist(ca, sa, ea, cb, sb, eb)
+        if detail:
+            return Table(
+                a.arrow.append_column(out_col, pa.array(r, mask=np.isnan(r)))
+            )
+        vals = r[~np.isnan(r)]
+        bins = np.minimum(np.floor(vals * 100).astype(np.int64), 50)
+        counts = np.bincount(bins, minlength=51)
+        nz = counts.nonzero()[0]
+        total = int(len(vals))
         return Table(
-            a.arrow.append_column(out_col, pa.array(r, mask=np.isnan(r)))
+            pa.Table.from_arrays(
+                [
+                    pa.array(nz / 100.0),
+                    pa.array(counts[nz].astype(np.int64)),
+                    pa.array(np.full(len(nz), total, np.int64)),
+                    pa.array(counts[nz] / total if total else counts[nz] * 0.0),
+                ],
+                names=["reldist", "count", "total", "fraction"],
+            )
         )
-    vals = r[~np.isnan(r)]
-    bins = np.minimum(np.floor(vals * 100).astype(np.int64), 50)
-    counts = np.bincount(bins, minlength=51)
-    nz = counts.nonzero()[0]
-    total = int(len(vals))
-    return Table(
-        pa.Table.from_arrays(
-            [
-                pa.array(nz / 100.0),
-                pa.array(counts[nz].astype(np.int64)),
-                pa.array(np.full(len(nz), total, np.int64)),
-                pa.array(counts[nz] / total if total else counts[nz] * 0.0),
-            ],
-            names=["reldist", "count", "total", "fraction"],
-        )
-    )
 
 
 def complement(a: Table, chrom_sizes: dict, cols: tuple = DEFAULT_COLS) -> Table:
     """Gaps not covered by any interval, per contig, within
     ``chrom_sizes[name] = (lo, hi)`` (or ``name: hi`` meaning (0, hi))."""
-    keys, starts, ends = _prep(a, cols)
-    codes = _encode_single(a, (cols[0], False), [keys])
-    codes64 = np.asarray(codes, np.int64)
-    # code <-> name maps via unique-codes + one small arrow take (no
-    # per-row Python); memoized with the merged runs — chrom_sizes vary
-    # between calls, the table-derived pieces do not
-    memo = a._codes.get(("complement", tuple(cols)))
-    if memo is None:
-        uniq, first = np.unique(codes64, return_index=True)
-        merged = genomic.merge_intervals(
-            np.asarray(codes), np.asarray(starts), np.asarray(ends)
+    with span("verb.complement"):
+        keys, starts, ends = _prep(a, cols)
+        codes = _encode_single(a, (cols[0], False), [keys])
+        codes64 = np.asarray(codes, np.int64)
+        # code <-> name maps via unique-codes + one small arrow take (no
+        # per-row Python); memoized with the merged runs — chrom_sizes vary
+        # between calls, the table-derived pieces do not
+        memo = a._codes.get(("complement", tuple(cols)))
+        if memo is None:
+            uniq, first = np.unique(codes64, return_index=True)
+            merged = genomic.merge_intervals(
+                np.asarray(codes), np.asarray(starts), np.asarray(ends)
+            )
+            memo = a._codes[("complement", tuple(cols))] = (uniq, first, merged)
+        uniq, first, merged = memo
+        kcol = keys.combine_chunks() if isinstance(keys, pa.ChunkedArray) else keys
+        uniq_names = kcol.take(pa.array(first)).to_pylist() if len(uniq) else []
+        name_of = dict(zip((int(c) for c in uniq), uniq_names))
+        code_of = {n: c for c, n in name_of.items()}
+        key_sizes = {}
+        extra = []
+        for name, extent in chrom_sizes.items():
+            lo, hi = extent if isinstance(extent, (tuple, list)) else (0, extent)
+            if name in code_of:
+                key_sizes[code_of[name]] = (lo, hi)
+            else:
+                extra.append((name, lo, hi))
+        ck, cs, ce = genomic.complement_intervals(
+            codes, starts, ends, key_sizes, merged=merged
         )
-        memo = a._codes[("complement", tuple(cols))] = (uniq, first, merged)
-    uniq, first, merged = memo
-    kcol = keys.combine_chunks() if isinstance(keys, pa.ChunkedArray) else keys
-    uniq_names = kcol.take(pa.array(first)).to_pylist() if len(uniq) else []
-    name_of = dict(zip((int(c) for c in uniq), uniq_names))
-    code_of = {n: c for c, n in name_of.items()}
-    key_sizes = {}
-    extra = []
-    for name, span in chrom_sizes.items():
-        lo, hi = span if isinstance(span, (tuple, list)) else (0, span)
-        if name in code_of:
-            key_sizes[code_of[name]] = (lo, hi)
-        else:
-            extra.append((name, lo, hi))
-    ck, cs, ce = genomic.complement_intervals(
-        codes, starts, ends, key_sizes, merged=merged
-    )
-    names_out = [name_of[int(c)] for c in ck]
-    rows_s = cs.astype(np.int64).tolist()
-    rows_e = ce.astype(np.int64).tolist()
-    for name, lo, hi in extra:  # contigs with no intervals: full span
-        names_out.append(name)
-        rows_s.append(lo)
-        rows_e.append(hi)
-    return Table(
-        pa.Table.from_arrays(
-            [pa.array(names_out, pa.string()), pa.array(rows_s, pa.int64()), pa.array(rows_e, pa.int64())],
-            names=list(cols),
+        names_out = [name_of[int(c)] for c in ck]
+        rows_s = cs.astype(np.int64).tolist()
+        rows_e = ce.astype(np.int64).tolist()
+        for name, lo, hi in extra:  # contigs with no intervals: full span
+            names_out.append(name)
+            rows_s.append(lo)
+            rows_e.append(hi)
+        return Table(
+            pa.Table.from_arrays(
+                [pa.array(names_out, pa.string()), pa.array(rows_s, pa.int64()), pa.array(rows_e, pa.int64())],
+                names=list(cols),
+            )
         )
-    )
 
 
 def depth(a: Table, cols: tuple = DEFAULT_COLS) -> Table:
     """Per-base depth runs (pileup): (contig, pos_start, pos_end, depth)."""
-    keys, starts, ends = _prep(a, cols)
-    codes = _encode_single(a, (cols[0], False), [keys])
-    dk, ds, de, dd = genomic.depth_events(codes, starts, ends)
-    decode = _code_decoder(a, cols[0], codes)
-    return Table(
-        pa.Table.from_arrays(
-            [
-                decode(dk),
-                pa.array(ds.astype(np.int64)),
-                pa.array(de.astype(np.int64)),
-                pa.array(dd.astype(np.int64)),
-            ],
-            names=[cols[0], cols[1], cols[2], "depth"],
+    with span("verb.depth"):
+        keys, starts, ends = _prep(a, cols)
+        codes = _encode_single(a, (cols[0], False), [keys])
+        dk, ds, de, dd = genomic.depth_events(codes, starts, ends)
+        decode = _code_decoder(a, cols[0], codes)
+        return Table(
+            pa.Table.from_arrays(
+                [
+                    decode(dk),
+                    pa.array(ds.astype(np.int64)),
+                    pa.array(de.astype(np.int64)),
+                    pa.array(dd.astype(np.int64)),
+                ],
+                names=[cols[0], cols[1], cols[2], "depth"],
+            )
         )
-    )
 
 
 def _code_decoder(table: Table, key_col, codes: np.ndarray):
@@ -710,32 +749,34 @@ def subtract(a: Table, b: Table, cols: tuple = DEFAULT_COLS, cols_b=None,
              strand=None, strand_col: str = "strand") -> Table:
     """Sub-ranges of a not covered by any b interval (bedtools subtract;
     ``strand='same'|'opposite'`` subtracts only matching-strand b)."""
-    cols_b = cols_b or cols
-    entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col)
-    ca, sa, ea, cb, sb, eb = _encode_pair(entry)
-    merged = entry.get("sub_merged")
-    if merged is None:
-        merged = entry["sub_merged"] = genomic.merged_subtrahend(cb, sb, eb)
-    ok, os_, oe = genomic.subtract_intervals(ca, sa, ea, cb, sb, eb, merged=merged)
-    decode = _code_decoder(a, cols[0], ca)
-    return Table(
-        pa.Table.from_arrays(
-            [decode(ok), pa.array(os_.astype(np.int64)), pa.array(oe.astype(np.int64))],
-            names=list(cols),
+    with span("verb.subtract"):
+        cols_b = cols_b or cols
+        entry = _pair_cache_entry(a, b, cols, cols_b, strand, strand_col)
+        ca, sa, ea, cb, sb, eb = _encode_pair(entry)
+        merged = entry.get("sub_merged")
+        if merged is None:
+            merged = entry["sub_merged"] = genomic.merged_subtrahend(cb, sb, eb)
+        ok, os_, oe = genomic.subtract_intervals(ca, sa, ea, cb, sb, eb, merged=merged)
+        decode = _code_decoder(a, cols[0], ca)
+        return Table(
+            pa.Table.from_arrays(
+                [decode(ok), pa.array(os_.astype(np.int64)), pa.array(oe.astype(np.int64))],
+                names=list(cols),
+            )
         )
-    )
 
 
 def jaccard(a: Table, b: Table, cols: tuple = DEFAULT_COLS, cols_b=None,
             device="cuda") -> dict:
     """Jaccard similarity of two interval sets (bedtools jaccard); the
     coverage of a's merged runs by b's runs on ``device``."""
-    dev = _device(device)
-    cols_b = cols_b or cols
-    ka, sa, ea = _prep(a, cols)
-    kb, sb, eb = _prep(b, cols_b)
-    ca, cb, _ = encode_join_keys([ka], [kb])
-    return genomic.jaccard(ca, sa, ea, cb, sb, eb, device=dev)
+    with span("verb.jaccard"):
+        dev = _device(device)
+        cols_b = cols_b or cols
+        ka, sa, ea = _prep(a, cols)
+        kb, sb, eb = _prep(b, cols_b)
+        ca, cb, _ = encode_join_keys([ka], [kb])
+        return genomic.jaccard(ca, sa, ea, cb, sb, eb, device=dev)
 
 
 def _keys_and_sizes(a: Table, chrom_sizes, cols):
@@ -760,47 +801,50 @@ def tile(chrom_sizes: dict, window: int, step: int | None = None,
          cols: tuple = DEFAULT_COLS) -> Table:
     """Fixed-size windows per contig (bedtools makewindows):
     ``chrom_sizes[name] = (lo, hi)`` or ``name: hi`` meaning (0, hi)."""
-    names = sorted(chrom_sizes)
-    key_sizes = {
-        i: (sp if isinstance(sp, (tuple, list)) else (0, sp))
-        for i, sp in enumerate(chrom_sizes[n] for n in names)
-    }
-    k, s_, e = genomic.tile_genome(key_sizes, window, step)
-    return Table(
-        pa.Table.from_arrays(
-            [
-                pa.array([names[int(c)] for c in k]),
-                pa.array(s_.astype(np.int64)),
-                pa.array(e.astype(np.int64)),
-            ],
-            names=list(cols),
+    with span("verb.tile"):
+        names = sorted(chrom_sizes)
+        key_sizes = {
+            i: (sp if isinstance(sp, (tuple, list)) else (0, sp))
+            for i, sp in enumerate(chrom_sizes[n] for n in names)
+        }
+        k, s_, e = genomic.tile_genome(key_sizes, window, step)
+        return Table(
+            pa.Table.from_arrays(
+                [
+                    pa.array([names[int(c)] for c in k]),
+                    pa.array(s_.astype(np.int64)),
+                    pa.array(e.astype(np.int64)),
+                ],
+                names=list(cols),
+            )
         )
-    )
 
 
 def flank(a: Table, left: int, right: int, chrom_sizes: dict | None = None,
           cols: tuple = DEFAULT_COLS) -> Table:
     """Flanking windows adjacent to each interval (bedtools flank)."""
-    _, starts, ends, codes, key_sizes = _keys_and_sizes(a, chrom_sizes, cols)
-    fk, fs, fe = genomic.flank(codes, starts, ends, left, right, key_sizes)
-    decode = _code_decoder(a, cols[0], codes)
-    return Table(
-        pa.Table.from_arrays(
-            [decode(fk), pa.array(fs.astype(np.int64)), pa.array(fe.astype(np.int64))],
-            names=list(cols),
+    with span("verb.flank"):
+        _, starts, ends, codes, key_sizes = _keys_and_sizes(a, chrom_sizes, cols)
+        fk, fs, fe = genomic.flank(codes, starts, ends, left, right, key_sizes)
+        decode = _code_decoder(a, cols[0], codes)
+        return Table(
+            pa.Table.from_arrays(
+                [decode(fk), pa.array(fs.astype(np.int64)), pa.array(fe.astype(np.int64))],
+                names=list(cols),
+            )
         )
-    )
 
 
 def slop(a: Table, left: int, right: int, chrom_sizes: dict | None = None,
          cols: tuple = DEFAULT_COLS) -> Table:
     """Extend intervals by left/right bases, clamped to contig spans."""
-    _, starts, ends, codes, key_sizes = _keys_and_sizes(a, chrom_sizes, cols)
-    _, os_, oe = genomic.slop(codes, starts, ends, left, right, key_sizes)
-    t = a.arrow.set_column(
-        a.column_names.index(cols[1]), cols[1], pa.array(os_.astype(np.int64))
-    )
-    t = t.set_column(
-        a.column_names.index(cols[2]), cols[2], pa.array(oe.astype(np.int64))
-    )
-    return Table(t)
+    with span("verb.slop"):
+        _, starts, ends, codes, key_sizes = _keys_and_sizes(a, chrom_sizes, cols)
+        _, os_, oe = genomic.slop(codes, starts, ends, left, right, key_sizes)
+        t = a.arrow.set_column(
+            a.column_names.index(cols[1]), cols[1], pa.array(os_.astype(np.int64))
+        )
+        t = t.set_column(
+            a.column_names.index(cols[2]), cols[2], pa.array(oe.astype(np.int64))
+        )
+        return Table(t)

@@ -16,7 +16,7 @@ import time
 
 from sequila_tpu_torch.config import SequilaConfig
 from sequila_tpu_torch.errors import ExecutionError
-from sequila_tpu_torch.utils.metrics import MetricsRegistry
+from sequila_tpu_torch.utils.metrics import MetricsRegistry, span, synchronize
 
 
 class MemoryPool:
@@ -48,18 +48,27 @@ class ExecContext:
     collect_metrics: bool = False
     memory: MemoryPool = dataclasses.field(default_factory=MemoryPool)
 
-    def timer(self, op: str, name: str):
-        return _Timer(self, op, name)
+    def timer(self, op: str, name: str, span_name: str | None = None):
+        """Add the block's seconds to ``metrics.times[op][name]``, recorded
+        as the span ``span_name`` (default ``name``).  Under EXPLAIN ANALYZE
+        (``collect_metrics``) the block ends on a synchronise, so it times
+        the card's work and not only its enqueue."""
+        return _Timer(self, op, name, span_name or name)
 
 
 class _Timer:
-    def __init__(self, ctx: ExecContext, op: str, name: str):
+    def __init__(self, ctx: ExecContext, op: str, name: str, span_name: str):
         self.ctx, self.op, self.name = ctx, op, name
+        self.span = span(span_name, op=op)
 
     def __enter__(self):
+        self.span.__enter__()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
+        if self.ctx.collect_metrics:
+            synchronize()
         self.ctx.metrics.add_time(self.op, self.name, time.perf_counter() - self.t0)
+        self.span.__exit__(*exc)
         return False

@@ -72,6 +72,7 @@ from sequila_tpu_torch.ops.interval_index import build_interval_index
 from sequila_tpu_torch.ops.interval_join import count_matches, total_count_i64
 from sequila_tpu_torch.planner.expr import JoinFilter, Literal, PhysicalExpr
 from sequila_tpu_torch.planner.intervals import ColIntervals
+from sequila_tpu_torch.utils.metrics import carry, span, to_device, to_host
 
 # Probe rows per device chunk of the level loop.
 _FULL_MODE_CHUNK = 4 << 20
@@ -280,13 +281,14 @@ class IntervalJoinExec(ExecPlan):
 
     def _assemble(self, left, right, b_rows, p_rows, left_null=None):
         """Gather one output batch through the pruned views."""
-        lv, rv, order = self._gather_views(left, right)
-        out = gather_join_output(lv, rv, b_rows, p_rows, left_null)
-        if order is not None:
-            t = out.arrow.select(order)
-            if self.projection_names:
-                t = t.rename_columns(self.projection_names)
-            out = Table(t)
+        with span("join.assemble", rows=len(b_rows)):
+            lv, rv, order = self._gather_views(left, right)
+            out = gather_join_output(lv, rv, b_rows, p_rows, left_null)
+            if order is not None:
+                t = out.arrow.select(order)
+                if self.projection_names:
+                    t = t.rename_columns(self.projection_names)
+                out = Table(t)
         return out
 
     # -- host execution -----------------------------------------------------
@@ -579,19 +581,23 @@ class IntervalJoinExec(ExecPlan):
 
         # device C tables are deterministic per (table pair, bound columns,
         # deltas, device): bounded paired memo on the table
+        def build():
+            with ctx.timer(self.op_id(), "build_time", "join.plan"):
+                return self._merge_count_plan(
+                    left, right, l_on, r_on, bs_cd, be_cd, qs_cd, qe_cd,
+                    remap_b, remap_q,
+                )
+
         plan = left.paired_memo(
             ("mcount", l_on.index, r_on.index, bs_cd, be_cd, qs_cd, qe_cd,
              str(self.device), id(right)),
             right,
-            lambda: self._merge_count_plan(
-                left, right, l_on, r_on, bs_cd, be_cd, qs_cd, qe_cd,
-                remap_b, remap_q,
-            ),
+            build,
         )
         if plan is None:
             return None
         with ctx.timer(self.op_id(), "join_time"):
-            total = int(mc.merge_count_passes(*plan))
+            total = int(to_host(mc.merge_count_passes(*plan)))
         ctx.metrics.add(self.op_id(), "output_rows", total)
         return total
 
@@ -640,18 +646,22 @@ class IntervalJoinExec(ExecPlan):
         l_on, r_on, bs_cd, be_cd, qs_cd, qe_cd = inputs[:6]
         # the remapped windows are deterministic per (table pair, bound
         # columns, deltas, device): bounded paired memo on the table
+        def build():
+            with ctx.timer(self.op_id(), "build_time", "join.plan"):
+                return self._stream_count_plan(left, right, *inputs)
+
         plan = left.paired_memo(
             ("scount", l_on.index, r_on.index, bs_cd, be_cd, qs_cd, qe_cd,
              str(self.device), id(right)),
             right,
-            lambda: self._stream_count_plan(left, right, *inputs),
+            build,
         )
         if plan is None:
             return None
         with ctx.timer(self.op_id(), "join_time"):
-            total = int(stream_count_passes(
+            total = int(to_host(stream_count_passes(
                 *plan, d_bs=bs_cd[1], d_be=be_cd[1], d_qs=qs_cd[1], d_qe=qe_cd[1],
-            ))
+            )))
         ctx.metrics.add(self.op_id(), "output_rows", total)
         return total
 
@@ -691,7 +701,7 @@ class IntervalJoinExec(ExecPlan):
             *tx_build(bl_kh, bl_vh, be_cd[1]), *tx_probe(ql_kh, ql_vh, qs_cd[1])
         )
         on_dev = [
-            torch.from_numpy(a).to(dev)
+            to_device(a, dev)
             for a in (remap_b, remap_q, c_lo_u, n_chunks_u, c_lo_l, n_chunks_l)
         ]
         return (bu_k, bu_v, bl_k, bl_v, qu_k, qu_v, ql_k, ql_v, *on_dev)
@@ -750,8 +760,8 @@ class IntervalJoinExec(ExecPlan):
             _, _, rk = right.dict_codes(r_on.index, dev)
             remap_l, remap_r = device_remaps(left, l_on.index, right, r_on.index, dev)
         with ctx.timer(self.op_id(), "join_time"):
-            total, n_deg = counts_bits_fused(lk, *bounds[:2], rk, *bounds[2:],
-                                             remap_l, remap_r).tolist()
+            total, n_deg = to_host(counts_bits_fused(lk, *bounds[:2], rk, *bounds[2:],
+                                                     remap_l, remap_r)).tolist()
         if n_deg > 0:
             return None  # exact level path required
         ctx.metrics.add(self.op_id(), "output_rows", total)
@@ -797,7 +807,7 @@ class IntervalJoinExec(ExecPlan):
         # dictionaries, and the host level assignment dominates repeated
         # queries.  Plain-Column shapes only — complex exprs rebuild.
         def build():
-            with ctx.timer(self.op_id(), "build_time"):
+            with ctx.timer(self.op_id(), "build_time", "join.index"):
                 return build_interval_index(lcodes, ls, le, device=self.device)
 
         cache_key = self._index_cache_key(left, right)
@@ -812,7 +822,7 @@ class IntervalJoinExec(ExecPlan):
         ``device``.  The JAX package pads each chunk to a bucket size with
         zero-count probes to bound XLA recompiles; the port needs no
         padding."""
-        return tuple(torch.tensor(a[lo : lo + rows], device=device) for a in (rcodes, rs, re))
+        return tuple(to_device(a[lo : lo + rows], device) for a in (rcodes, rs, re))
 
     @staticmethod
     def _chunk_count_method(rs, re, lo, rows, fallback_method, build_inverted=False):
@@ -857,12 +867,12 @@ class IntervalJoinExec(ExecPlan):
         cache_key = self._index_cache_key(left, right)
         if cache_key is not None:
             def build():
-                with ctx.timer(self.op_id(), "build_time"):
+                with ctx.timer(self.op_id(), "build_time", "host_index.build"):
                     return make_host_index(*index)
 
             hidx = left.paired_memo(("hostidx",) + cache_key[1:], right, build)
             return hidx, rcodes, rs, re
-        with ctx.timer(self.op_id(), "build_time"):
+        with ctx.timer(self.op_id(), "build_time", "host_index.build"):
             hidx = make_host_index(*index)
         return hidx, rcodes, rs, re
 
@@ -1029,7 +1039,12 @@ class IntervalJoinExec(ExecPlan):
         records the route that answered (``emit_route_<name>``: host,
         merge, or the rank strategy sort, bsearch or window).  Nearest
         routes by ``nearest_route_host`` (``nearest_route_<host|device>``).
-        Partitioned mode runs over the mesh (``distribution_<name>``)."""
+        Partitioned mode runs over the mesh (``distribution_<name>``).
+        Recorded as the span ``join.emit``."""
+        with span("join.emit"):
+            return self._execute(ctx)
+
+    def _execute(self, ctx):
         left = self.children[0].execute(ctx)
         right = self.children[1].execute(ctx)
         mesh = self._partitioned_mesh(ctx)
@@ -1213,7 +1228,7 @@ class IntervalJoinExec(ExecPlan):
             for lo in range(0, m, _FULL_MODE_CHUNK):
                 rows = min(_FULL_MODE_CHUNK, m - lo)
                 qk, qs, qe = self._probe_chunk(rcodes, rs, re, lo, rows, self.device)
-                outs.append(nearest_match(index, qk, qs, qe, method).cpu().numpy())
+                outs.append(to_host(nearest_match(index, qk, qs, qe, method)))
             left_rows = (
                 np.concatenate(outs) if outs else np.empty(0, np.int32)
             ).astype(np.int64)
@@ -1263,17 +1278,18 @@ class IntervalJoinExec(ExecPlan):
         # plan memo (the count path's 'mcount' memo): valid() pins the
         # index identity, so a cache miss in _prepare invalidates the plan
         def build():
-            remap_b, remap_q = merge_dictionaries(lvals, rvals)
-            views = (
-                left.per_key_minmax(l_on.index, bs_cd[0]),
-                left.per_key_minmax(l_on.index, be_cd[0]),
-                right.per_key_minmax(r_on.index, qs_cd[0]),
-                right.per_key_minmax(r_on.index, qe_cd[0]),
-            )
-            return index, mc.plan_level_bounds(
-                index, right, r_on.index, qs_cd, qe_cd, bs_cd, be_cd,
-                remap_b, remap_q, views,
-            )
+            with span("join.plan"):
+                remap_b, remap_q = merge_dictionaries(lvals, rvals)
+                views = (
+                    left.per_key_minmax(l_on.index, bs_cd[0]),
+                    left.per_key_minmax(l_on.index, be_cd[0]),
+                    right.per_key_minmax(r_on.index, qs_cd[0]),
+                    right.per_key_minmax(r_on.index, qe_cd[0]),
+                )
+                return index, mc.plan_level_bounds(
+                    index, right, r_on.index, qs_cd, qe_cd, bs_cd, be_cd,
+                    remap_b, remap_q, views,
+                )
 
         _, plan = left.paired_memo(
             ("mbplan", l_on.index, r_on.index, bs_cd, be_cd, qs_cd, qe_cd,
@@ -1303,7 +1319,7 @@ class IntervalJoinExec(ExecPlan):
             if total:
                 yield 0, b, p
             return
-        counts = _counts_and_nnz(lb, ub)[:-2].cpu().numpy()
+        counts = to_host(_counts_and_nnz(lb, ub)[:-2])
         cum = np.concatenate([[0], np.cumsum(counts, dtype=np.int64)])
         m = len(counts)
         lo = 0
@@ -1358,39 +1374,48 @@ class IntervalJoinExec(ExecPlan):
                             break
                         rows = max(1, rows // 2)
                         qk, qs, qe = self._probe_chunk(rcodes, rs, re, lo, rows, dev)
-                b_rows, p_rows, total = materialize_pairs(index, qk, qs, qe, method)
+                with span("join.pairs", rows=rows):
+                    b_rows, p_rows, total = materialize_pairs(index, qk, qs, qe, method)
             return lo, rows, b_rows, p_rows, total
 
         with ThreadPoolExecutor(1) as ex:
-            fut = ex.submit(produce, 0) if m > 0 else None
+            fut = ex.submit(carry(produce), 0) if m > 0 else None
             while fut is not None:
                 lo, rows, b_rows, p_rows, total = fut.result()
                 nxt = lo + rows
-                fut = ex.submit(produce, nxt) if nxt < m else None
+                fut = ex.submit(carry(produce), nxt) if nxt < m else None
                 if total > 0:
                     yield lo, b_rows, p_rows
 
     def count_rows(self, ctx) -> int:
         """Exact output cardinality without materializing pairs — the
         count(*) fast path (the BITS-style count; every databio benchmark
-        query is answerable by this alone)."""
+        query is answerable by this alone).  Recorded as the span
+        ``join.count``, with the route that answered."""
+        with span("join.count") as sp:
+            total, route = self._count_rows(ctx)
+            sp.set(route=route)
+        return total
+
+    def _count_rows(self, ctx) -> tuple[int, str | None]:
         left = self.children[0].execute(ctx)
         right = self.children[1].execute(ctx)
         if self.algorithm.is_nearest:
-            return right.num_rows
+            return right.num_rows, None
         mesh = self._partitioned_mesh(ctx)
         if mesh is not None:
-            return self._partitioned_count(ctx, mesh, left, right)
+            return self._partitioned_count(ctx, mesh, left, right), "partitioned"
         op = self.op_id()
         if self._use_host(left, right):
             hidx, rcodes, rs, re = self._host_index(ctx, left, right)
-            total = int(hidx.counts(rcodes, rs, re).sum())
+            with span("host_index.query", rows=len(rcodes)):
+                total = int(hidx.counts(rcodes, rs, re).sum())
             ctx.metrics.add(op, "output_rows", total)
             ctx.metrics.add(op, "count_route_host")
-            return total
+            return total, "host"
         if left.num_rows == 0 or right.num_rows == 0:
             ctx.metrics.add(op, "output_rows", 0)
-            return 0
+            return 0, None
         backend = _os.environ.get("SEQUILA_COUNT_BACKEND", "merge")
         # each route returns None for a shape it declines, which passes on
         # to the next, in the JAX package's order
@@ -1403,7 +1428,7 @@ class IntervalJoinExec(ExecPlan):
             if total is not None:
                 break
         ctx.metrics.add(op, f"count_route_{name}")
-        return total
+        return total, name
 
     def _level_chunk_counts(self, index, rcodes, rs, re):
         """Per-probe counts over the level index, one device tensor a probe
@@ -1440,7 +1465,13 @@ class IntervalJoinExec(ExecPlan):
         returns the executed probe Table, so that callers
         (GroupedIntervalCountExec) do not re-execute the subplan.
         Partitioned mode gives int64 counts from the mesh, as in the JAX
-        package."""
+        package.  Recorded as the span ``join.probe_counts``."""
+        with span("join.probe_counts") as sp:
+            counts, right, route = self._per_probe_counts(ctx)
+            sp.set(route=route)
+        return (counts, right) if with_table else counts
+
+    def _per_probe_counts(self, ctx):
         left = self.children[0].execute(ctx)
         right = self.children[1].execute(ctx)
         mesh = self._partitioned_mesh(ctx)
@@ -1453,18 +1484,18 @@ class IntervalJoinExec(ExecPlan):
             else:
                 with ctx.timer(self.op_id(), "join_time"):
                     counts = partitioned_probe_counts(mesh, lcodes, ls, le, rcodes, rs, re)
-            return (counts, right) if with_table else counts
+            return counts, right, "partitioned"
         counts = None
         if self._use_host(left, right):
             hidx, rcodes, rs, re = self._host_index(ctx, left, right)
-            with ctx.timer(self.op_id(), "join_time"):
+            with ctx.timer(self.op_id(), "join_time", "host_index.query"):
                 counts, route = hidx.counts(rcodes, rs, re).astype(np.int32), "host"
         elif _os.environ.get("SEQUILA_COUNT_BACKEND", "merge") == "merge":
             counts, route = self._merge_probe_counts(ctx, left, right), "merge"
         if counts is None:
             counts, route = self._level_probe_counts(ctx, left, right), "level"
         ctx.metrics.add(self.op_id(), f"probe_count_route_{route}")
-        return (counts, right) if with_table else counts
+        return counts, right, route
 
     def _merge_probe_counts(self, ctx, left: Table, right: Table):
         """Per-probe counts through the merge backend over the cached
@@ -1478,19 +1509,23 @@ class IntervalJoinExec(ExecPlan):
         if inputs is None:
             return None
         l_on, r_on, bs_cd, be_cd, qs_cd, qe_cd, remap_b, remap_q = inputs
+        def build():
+            with ctx.timer(self.op_id(), "build_time", "join.plan"):
+                return self._merge_probe_plan(
+                    left, right, l_on, r_on, bs_cd, be_cd, qs_cd, qe_cd,
+                    remap_b, remap_q,
+                )
+
         plan = left.paired_memo(
             ("mpcount", l_on.index, r_on.index, bs_cd, be_cd, qs_cd, qe_cd,
              str(self.device), id(right)),
             right,
-            lambda: self._merge_probe_plan(
-                left, right, l_on, r_on, bs_cd, be_cd, qs_cd, qe_cd,
-                remap_b, remap_q,
-            ),
+            build,
         )
         if plan is None:
             return None
         with ctx.timer(self.op_id(), "join_time"):
-            return mc.merge_probe_count_passes(plan).cpu().numpy()
+            return to_host(mc.merge_probe_count_passes(plan))
 
     def _merge_probe_plan(
         self, left, right, l_on, r_on, bs_cd, be_cd, qs_cd, qe_cd,
@@ -1528,7 +1563,7 @@ class IntervalJoinExec(ExecPlan):
         """Per-probe counts by the chunked level loop, in probe row order."""
         prepared = self._prepare(ctx, left, right)
         with ctx.timer(self.op_id(), "join_time"):
-            outs = [c.cpu().numpy() for c in self._level_chunk_counts(*prepared)]
+            outs = [to_host(c) for c in self._level_chunk_counts(*prepared)]
         return np.concatenate(outs) if outs else np.empty(0, np.int32)
 
     def statistics(self):

@@ -19,6 +19,7 @@ import pyarrow as pa
 import torch
 
 from sequila_tpu_torch.errors import CastOverflowError, ExecutionError
+from sequila_tpu_torch.utils.metrics import span, to_device
 
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 
@@ -243,6 +244,11 @@ class Table:
         """
         if self._stats is not None:
             return self._stats
+        with span("table.statistics", rows=self.num_rows):
+            self._stats = self._statistics()
+        return self._stats
+
+    def _statistics(self):
         import pyarrow.compute as pc
 
         from sequila_tpu_torch.exec.statistics import (
@@ -273,20 +279,17 @@ class Table:
             except pa.ArrowNotImplementedError:
                 pass
             cols.append(ColumnStatistics(null_count, mn, mx, dv, mean))
-        self._stats = Statistics(
+        return Statistics(
             Precision.exact(self._t.num_rows),
             Precision.exact(self._t.nbytes),
             tuple(cols),
         )
-        return self._stats
 
     def device_i32(self, name_or_idx, device):
         """Column as an int32 tensor on ``device`` (overflow-checked once)."""
         key = (name_or_idx, _device_key(device))
         if key not in self._dev_i32:
-            self._dev_i32[key] = torch.tensor(
-                self.column_as_i32(name_or_idx), device=device
-            )
+            self._dev_i32[key] = to_device(self.column_as_i32(name_or_idx), device)
         return self._dev_i32[key]
 
     def dict_codes(self, name_or_idx, device=None):
@@ -299,22 +302,23 @@ class Table:
         in the joint key space — the basis of the sort-free count path."""
         key = name_or_idx
         if key not in self._codes:
-            col = self._t.column(name_or_idx).combine_chunks()
-            enc = col.dictionary_encode()
-            codes = enc.indices.to_numpy(zero_copy_only=False).astype(np.int32)
-            values = enc.dictionary.to_numpy(zero_copy_only=False)
-            order = np.argsort(values, kind="stable")
-            rank = np.empty_like(order)
-            rank[order] = np.arange(len(order))
-            codes = rank.astype(np.int32)[codes]
-            values = values[order]
-            self._codes[key] = (codes, values)
+            with span("table.dict_codes", rows=self.num_rows):
+                col = self._t.column(name_or_idx).combine_chunks()
+                enc = col.dictionary_encode()
+                codes = enc.indices.to_numpy(zero_copy_only=False).astype(np.int32)
+                values = enc.dictionary.to_numpy(zero_copy_only=False)
+                order = np.argsort(values, kind="stable")
+                rank = np.empty_like(order)
+                rank[order] = np.arange(len(order))
+                codes = rank.astype(np.int32)[codes]
+                values = values[order]
+                self._codes[key] = (codes, values)
         codes, values = self._codes[key]
         if device is None:
             return codes, values, None
         dkey = ("codes", key, _device_key(device))
         if dkey not in self._dev_i32:
-            self._dev_i32[dkey] = torch.tensor(codes, device=device)
+            self._dev_i32[dkey] = to_device(codes, device)
         return codes, values, self._dev_i32[dkey]
 
     def _sorted_view_host(self, key_col, val_col):
@@ -325,24 +329,25 @@ class Table:
 
             codes, _, _ = self.dict_codes(key_col)
             vals = self.column_as_i32(val_col)
-            # the stable native radix over the order-preserving (code, value)
-            # composite is np.lexsort's order, about 8x faster
-            order = argsort64(
-                (codes.astype(np.int64) << 32) | (vals.astype(np.int64) + 2**31)
-            )
-            if order is None:
-                order = np.lexsort((vals, codes))
-            n = len(order)
-            pad = -(-max(n, 1) // 2048) * 2048
-            PADV = np.int32(2**31 - 1)
-            K = np.full(pad, PADV, np.int32)
-            V = np.full(pad, PADV, np.int32)
-            K[:n] = codes[order]
-            V[:n] = vals[order]
-            order = order.astype(np.int32)
-            for a in (K, V, order):
-                a.flags.writeable = False
-            self._i32[key] = (K, V, n, order)
+            with span("table.view_sort", rows=self.num_rows):
+                # the stable native radix over the order-preserving (code,
+                # value) composite is np.lexsort's order, about 8x faster
+                order = argsort64(
+                    (codes.astype(np.int64) << 32) | (vals.astype(np.int64) + 2**31)
+                )
+                if order is None:
+                    order = np.lexsort((vals, codes))
+                n = len(order)
+                pad = -(-max(n, 1) // 2048) * 2048
+                PADV = np.int32(2**31 - 1)
+                K = np.full(pad, PADV, np.int32)
+                V = np.full(pad, PADV, np.int32)
+                K[:n] = codes[order]
+                V[:n] = vals[order]
+                order = order.astype(np.int32)
+                for a in (K, V, order):
+                    a.flags.writeable = False
+                self._i32[key] = (K, V, n, order)
         return self._i32[key]
 
     def sorted_interval_view(self, key_col, val_col, device):
@@ -354,9 +359,7 @@ class Table:
         cache_key = ("siv", key_col, val_col, _device_key(device))
         if cache_key not in self._dev_i32:
             K, V, n, _ = self._sorted_view_host(key_col, val_col)
-            self._dev_i32[cache_key] = (
-                torch.tensor(K, device=device), torch.tensor(V, device=device), K, V, n
-            )
+            self._dev_i32[cache_key] = (to_device(K, device), to_device(V, device), K, V, n)
         return self._dev_i32[cache_key]
 
     def sorted_interval_order(self, key_col, val_col) -> np.ndarray:
@@ -372,9 +375,10 @@ class Table:
         cache_key = ("sivinv", key_col, val_col, _device_key(device))
         if cache_key not in self._dev_i32:
             order = self.sorted_interval_order(key_col, val_col)
-            inv = np.empty(len(order), np.int32)
-            inv[order] = np.arange(len(order), dtype=np.int32)
-            self._dev_i32[cache_key] = torch.from_numpy(inv).to(device)
+            with span("table.inverse", rows=len(order)):
+                inv = np.empty(len(order), np.int32)
+                inv[order] = np.arange(len(order), dtype=np.int32)
+            self._dev_i32[cache_key] = to_device(inv, device)
         return self._dev_i32[cache_key]
 
     # -- constructors -------------------------------------------------------
@@ -654,7 +658,8 @@ class Table:
         cached = self._i32.get(name_or_idx)
         if cached is not None:
             return cached
-        out = self._column_as_i32_uncached(name_or_idx)
+        with span("table.column_i32", rows=self.num_rows):
+            out = self._column_as_i32_uncached(name_or_idx)
         out.flags.writeable = False
         self._i32[name_or_idx] = out
         return out
@@ -669,9 +674,10 @@ class Table:
         key = ("mindiff", hi_col, lo_col)
         cached = self._i32.get(key)
         if cached is None:
-            hi = self.column_as_i32(hi_col).astype(np.int64)
-            lo = self.column_as_i32(lo_col).astype(np.int64)
-            cached = int((hi - lo).min()) if len(hi) else 0
+            hi = self.column_as_i32(hi_col)
+            lo = self.column_as_i32(lo_col)
+            with span("table.min_gap", rows=self.num_rows):
+                cached = int((hi.astype(np.int64) - lo).min()) if len(hi) else 0
             self._i32[key] = cached
         return cached
 
@@ -691,7 +697,12 @@ class Table:
             return cached
         codes, values, _ = self.dict_codes(key_col)
         vals = self.column_as_i32(val_col)
-        k = len(values)
+        with span("table.key_minmax", rows=self.num_rows):
+            self._i32[key] = self._per_key_minmax(codes, len(values), vals)
+        return self._i32[key]
+
+    @staticmethod
+    def _per_key_minmax(codes, k, vals):
         n = len(codes)
         mins = np.full(k, np.iinfo(np.int64).max, np.int64)
         maxs = np.full(k, np.iinfo(np.int64).min, np.int64)
@@ -710,8 +721,7 @@ class Table:
             maxs[present] = svals[lasts[present] - 1]
         mins.flags.writeable = False
         maxs.flags.writeable = False
-        self._i32[key] = (mins, maxs)
-        return self._i32[key]
+        return mins, maxs
 
     def _column_as_i32_uncached(self, name_or_idx) -> np.ndarray:
         col = self._t.column(name_or_idx)
@@ -841,7 +851,7 @@ def device_remaps(left: "Table", l_col, right: "Table", r_col, device):
     _, lvals, _ = left.dict_codes(l_col)
     _, rvals, _ = right.dict_codes(r_col)
     rl, rr = merge_dictionaries(lvals, rvals)
-    dl, dr = torch.from_numpy(rl).to(device), torch.from_numpy(rr).to(device)
+    dl, dr = to_device(rl, device), to_device(rr, device)
     left._codes[key] = (weakref.ref(right), dl, dr)
     return dl, dr
 

@@ -41,7 +41,9 @@ Packed views are carried in int32 tensors holding the u32 bit patterns:
 PyTorch implements few operators for ``torch.uint32``, and the kernels read
 the buffers as unsigned.  Each wrapper launches its CUDA kernel for a CUDA
 tensor (or raises) and runs its plain PyTorch version only for a tensor on
-the CPU; ``<wrapper>.launches`` counts kernel launches.  JAX's int32-only
+the CPU; each launch adds one to the counter ``launch.<kernel>``
+(utils/metrics.count: ``launch.pack_view``, ``launch.merge_path``,
+``launch.unpermute_counts``, ``launch.unpermute_ranks``).  JAX's int32-only
 limb sums and the ``_M_LIMIT`` guard are gone: ranks sum in 64 bits.
 """
 
@@ -52,6 +54,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from sequila_tpu_torch.utils.metrics import count, to_device, to_host
 
 PADV = np.int32(2**31 - 1)
 BUILD_PAD = 0xFFFFFFFF
@@ -124,7 +128,7 @@ def plan_packing(remap_b, remap_q, views, deltas):
 
 def c_tab_tensor(c_tab: np.ndarray, device) -> torch.Tensor:
     """A np.uint32 C table as an int32 tensor of the same bits on ``device``."""
-    return torch.from_numpy(np.ascontiguousarray(c_tab).view(np.int32)).to(device)
+    return to_device(np.ascontiguousarray(c_tab).view(np.int32), device)
 
 
 def as_u32(packed: torch.Tensor) -> torch.Tensor:
@@ -198,11 +202,8 @@ def pack_view(k, v, c_tab, pad_sentinel: int) -> torch.Tensor:
             pad_sentinel, out.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream,
         )
     _lib.check(err, "pack_view")
-    pack_view.launches += 1
+    count("launch.pack_view")
     return out
-
-
-pack_view.launches = 0
 
 
 def merge_rank_plain(a, q, *, strict: bool, reduce: bool = False) -> torch.Tensor:
@@ -352,7 +353,7 @@ def plan_segments(segs, device) -> SegmentPlan:
         if s.total is not None:
             row[_F_TOTAL_SLOT], row[_F_TOTAL_OFF] = s.total
         row[_F_BLOCK0] = b0
-    desc_dev = torch.from_numpy(desc).to(device) if len(segs) > N_INLINE else None
+    desc_dev = to_device(desc, device) if len(segs) > N_INLINE else None
     return SegmentPlan(segs, block0, device, need, desc, desc_dev)
 
 
@@ -417,7 +418,7 @@ def segments_launcher(plan: SegmentPlan, slots):
     runs every segment in ONE launch of the merge-path kernel (B1): ranks
     land in their output slots, sums add into their int64 slots (zero them
     first).  CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise.  Each launch adds one to ``merge_rank_sorted.launches``."""
+    kernel or raise.  Each launch adds one to ``launch.merge_path``."""
     slots = tuple(slots)
     dev = _check_slots(plan, slots)
     if dev.type == "cpu":
@@ -438,7 +439,7 @@ def segments_launcher(plan: SegmentPlan, slots):
         with torch.cuda.device(dev):
             err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
         _lib.check(err, "merge_rank_segments")
-        merge_rank_sorted.launches += 1
+        count("launch.merge_path")
 
     return launch
 
@@ -469,8 +470,8 @@ def merge_rank_sorted(a, q, *, strict: bool, reduce: bool = False) -> torch.Tens
     Returns the int32 ranks, or with ``reduce=True`` their int64 sum as a
     0-d tensor (the kernel then writes no ranks).  ``a`` and ``q`` are
     int32 tensors holding u32 bits, each sorted as u32.  One packed
-    segment of merge_rank_segments; ``merge_rank_sorted.launches`` counts
-    every launch of that kernel, whoever calls it.
+    segment of merge_rank_segments; ``launch.merge_path`` counts every
+    launch of that kernel, whoever calls it.
     Replaces the TPU kernel sequila_tpu/ops/pallas/merge_count.py:110
     ::_merge_rank_sorted (B1)."""
     _check(a, "a")
@@ -482,9 +483,6 @@ def merge_rank_sorted(a, q, *, strict: bool, reduce: bool = False) -> torch.Tens
         out = torch.empty(q.numel(), dtype=torch.int32, device=dev)
     merge_rank_segments(_packed_plan(a.numel(), q.numel(), strict, reduce, dev), (a, q, out))
     return out[0] if reduce else out
-
-
-merge_rank_sorted.launches = 0
 
 
 def merge_count_passes(
@@ -572,7 +570,7 @@ def unpermute_counts(ranks, inv_e, inv_s) -> torch.Tensor:
     each probe row's slot in the view of row 0 / row 1 (permutations of
     0 .. n - 1, which the kernel does not check).  One launch of
     csrc/merge_rank.cu::unpermute_counts_kernel for CUDA tensors, counted
-    in ``unpermute_counts.launches``; the plain version for CPU tensors.
+    in ``launch.unpermute_counts``; the plain version for CPU tensors.
     Replaces the two XLA scatters and the subtraction of
     sequila_tpu/ops/pallas/merge_count.py:237-243
     (merge_probe_count_passes)."""
@@ -600,11 +598,8 @@ def unpermute_counts(ranks, inv_e, inv_s) -> torch.Tensor:
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _lib.check(err, "unpermute_counts")
-    unpermute_counts.launches += 1
+    count("launch.unpermute_counts")
     return out
-
-
-unpermute_counts.launches = 0
 
 
 def merge_probe_count_passes(plan: ProbeCountPlan) -> torch.Tensor:
@@ -752,7 +747,7 @@ def unpermute_ranks(ranks, inv_e, inv_s) -> torch.Tensor:
     each probe row's slot in the view of rows 0, 2 / 1, 3 (permutations of
     0 .. n - 1, which the kernel does not check).  One launch of
     csrc/merge_rank.cu::unpermute_planes_kernel for CUDA tensors, counted
-    in ``unpermute_ranks.launches``; the plain version for CPU tensors.
+    in ``launch.unpermute_ranks``; the plain version for CPU tensors.
     Replaces the XLA scatter of sequila_tpu/ops/pallas/merge_count.py:345
     (merge_verb_rank4's scat)."""
     if ranks.dtype != torch.int32 or ranks.dim() != 2 or ranks.shape[0] != 4:
@@ -779,11 +774,8 @@ def unpermute_ranks(ranks, inv_e, inv_s) -> torch.Tensor:
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _lib.check(err, "unpermute_ranks")
-    unpermute_ranks.launches += 1
+    count("launch.unpermute_ranks")
     return out
-
-
-unpermute_ranks.launches = 0
 
 
 def merge_verb_rank4(plan: VerbRankPlan) -> torch.Tensor:
@@ -849,7 +841,7 @@ def coverage_from_ranks(ranks, qs, qe, psum, esum):
     sumB_start = psum[ub_s] - psum[lb_s]
     sum_min_end = sumA_end + i64(qe) * (total - nA)
     sum_max_start = sumB_start + i64(qs) * (total - nB)
-    return total.cpu().numpy(), (sum_min_end - sum_max_start).cpu().numpy()
+    return to_host(total), to_host(sum_min_end - sum_max_start)
 
 
 def count_segments(n1: int, m1: int, n2: int, m2: int) -> tuple:
@@ -921,7 +913,7 @@ def plan_level_bounds(index, probe, r_key, qs_cd, qe_cd, bs_cd, be_cd,
     # the views' real rows lead and their PAD slots trail, so the orders
     # (real rows only) scatter the first n ranks and nothing else
     ord_qe, ord_qs = (
-        torch.from_numpy(probe.sorted_interval_order(r_key, c).astype(np.int64)).to(dev)
+        to_device(probe.sorted_interval_order(r_key, c).astype(np.int64), dev)
         for c in (qe_cd[0], qs_cd[0])
     )
     # slots of a call: 0 packed probe ends, 1 packed probe starts, 2 the

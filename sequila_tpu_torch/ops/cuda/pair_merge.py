@@ -13,7 +13,8 @@ the kernel's parameters.
 
 The launcher launches the CUDA kernel for CUDA tensors (or raises) and
 runs the plain PyTorch version only for CPU tensors; each launch adds one
-to the ``launches`` count of the entry point it was made for.
+to the counter ``launch.pair_merge`` (utils/metrics.count), whichever of
+B2 and B3 it serves.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 
 from sequila_tpu_torch.ops.cuda.merge_count import _check_slots, _same_device, _slot
 from sequila_tpu_torch.ops.ranks import composite
+from sequila_tpu_torch.utils.metrics import count
 
 # the kernel's tiling: THREADS x ITEMS merge diagonals a tile, TILES
 # tiles (SPAN diagonals) a block, one warp for each tile boundary
@@ -183,14 +185,12 @@ def pair_segments_plain(segs, slots) -> None:
             get(s.out, s.m).copy_(ranks)
 
 
-def segments_launcher(plan: PairPlan, slots, counter=None):
+def segments_launcher(plan: PairPlan, slots):
     """Validate ``slots`` against ``plan`` once and return a callable that
     runs every segment in ONE launch of the pair-merge kernel: ranks land
     in their output slots, sums add into their int64 slots (zero them
     first).  CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise.  Each launch adds one to ``counter.launches``
-    (default: pair_merge_segments')."""
-    counter = pair_merge_segments if counter is None else counter
+    kernel or raise.  Each launch adds one to ``launch.pair_merge``."""
     slots = tuple(slots)
     dev = _check_slots(plan, slots, N_SLOTS)
     if dev.type == "cpu":
@@ -211,20 +211,17 @@ def segments_launcher(plan: PairPlan, slots, counter=None):
         with torch.cuda.device(dev):
             err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
         _lib.check(err, "pair_merge_segments")
-        counter.launches += 1
+        count("launch.pair_merge")
 
     return launch
 
 
-def pair_merge_segments(plan: PairPlan, slots, counter=None) -> None:
+def pair_merge_segments(plan: PairPlan, slots) -> None:
     """Run every segment of ``plan`` over the per-call tensors ``slots``
     in one launch (see segments_launcher).  Replaces the TPU kernels
     sequila_tpu/ops/pallas/stream_rank.py:86::_stream_rank_sorted (B2) and
     sequila_tpu/ops/pallas/rank_kernel.py:126::_pallas_rank_sorted (B3)."""
-    segments_launcher(plan, slots, counter)()
-
-
-pair_merge_segments.launches = 0
+    segments_launcher(plan, slots)()
 
 
 @functools.lru_cache(maxsize=64)
@@ -236,8 +233,7 @@ def _rank_plan(n: int, m: int, strict: bool, windowed: bool, reduce: bool,
                                            strict=strict, **win, **out)], device)
 
 
-def rank_pairs(a_k, a_v, q_k, q_v, *, strict: bool, reduce: bool, windows=(),
-               counter=None) -> torch.Tensor:
+def rank_pairs(a_k, a_v, q_k, q_v, *, strict: bool, reduce: bool, windows=()) -> torch.Tensor:
     """One segment over the slots (a_k, a_v, q_k, q_v, out, *windows):
     int32 ranks, or with ``reduce`` their int64 sum as a 0-d tensor."""
     dev = _same_device(a_k, a_v, q_k, q_v, *windows)
@@ -245,5 +241,5 @@ def rank_pairs(a_k, a_v, q_k, q_v, *, strict: bool, reduce: bool, windows=(),
     out = (torch.zeros(1, dtype=torch.int64, device=dev) if reduce
            else torch.empty(m, dtype=torch.int32, device=dev))
     plan = _rank_plan(a_k.numel(), m, strict, bool(windows), reduce, dev)
-    pair_merge_segments(plan, (a_k, a_v, q_k, q_v, out, *windows), counter)
+    pair_merge_segments(plan, (a_k, a_v, q_k, q_v, out, *windows))
     return out[0] if reduce else out

@@ -14,8 +14,8 @@ ranks, and scatters back; above MAX_RESIDENT_BUILD rows it ranks by
 in the JAX package, only tests reach it.
 
 The wrapper launches its CUDA kernel for CUDA tensors (or raises) and runs
-its plain PyTorch version only for CPU tensors;
-``rank_sorted_resident.launches`` counts kernel launches.
+its plain PyTorch version only for CPU tensors; the counter
+``launch.pair_merge`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -64,11 +64,7 @@ def rank_sorted_resident(a_keys, a_vals, q_keys, q_vals, *, strict: bool,
             f"build of {n_pad} rows: expected a multiple of {CHUNK}, at most "
             f"{MAX_RESIDENT_BUILD}"
         )
-    return rank_pairs(a_keys, a_vals, q_keys, q_vals, strict=strict, reduce=reduce,
-                      counter=rank_sorted_resident)
-
-
-rank_sorted_resident.launches = 0
+    return rank_pairs(a_keys, a_vals, q_keys, q_vals, strict=strict, reduce=reduce)
 
 
 def rank_lex_resident(build_keys, query_keys, side: str = "left"):

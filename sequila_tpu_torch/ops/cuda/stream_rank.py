@@ -18,7 +18,7 @@ tables' cached (key, value)-sorted views, with no device sort:
 
 Comparisons are signed int32 lexicographic on (key, value).  The wrapper
 launches its CUDA kernel for CUDA tensors (or raises) and runs its plain
-PyTorch version only for CPU tensors; ``stream_rank_sorted.launches``
+PyTorch version only for CPU tensors; the counter ``launch.pair_merge``
 counts kernel launches, those of ``stream_count_passes`` included.
 """
 
@@ -96,10 +96,7 @@ def stream_rank_sorted(a2, c_lo, n_chunks, q_keys, q_vals, *, strict: bool,
             f"{n_chunks.numel()}"
         )
     return rank_pairs(a2[0], a2[1], q_keys, q_vals, strict=strict, reduce=reduce,
-                      windows=(c_lo, n_chunks), counter=stream_rank_sorted)
-
-
-stream_rank_sorted.launches = 0
+                      windows=(c_lo, n_chunks))
 
 
 def _remap_keys(k, remap):
@@ -145,8 +142,8 @@ def stream_count_launcher(pass_u, pass_l):
     int64 ``totals`` [u, l] in one pair-merge launch over the slots
     (a_k, a_v, q_k, q_v, c_lo, n_chunks) of pass u, the same of pass l,
     then totals.  Each launch on the card adds one to
-    ``stream_rank_sorted.launches``; the bare launch is what a timing of
-    the kernel alone should call."""
+    ``launch.pair_merge``; the bare launch is what a timing of the kernel
+    alone should call."""
     slots = []
     for a2, c_lo, n_chunks, q_keys, q_vals in (pass_u, pass_l):
         _check_build(a2)
@@ -154,7 +151,7 @@ def stream_count_launcher(pass_u, pass_l):
     totals = torch.zeros(2, dtype=torch.int64, device=pass_u[3].device)
     plan = _count_plan(pass_u[0].shape[1], pass_u[3].numel(), pass_l[0].shape[1],
                        pass_l[3].numel(), totals.device)
-    return segments_launcher(plan, (*slots, totals), stream_rank_sorted), totals
+    return segments_launcher(plan, (*slots, totals)), totals
 
 
 def stream_pass_inputs(

@@ -51,6 +51,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from sequila_tpu_torch.utils.metrics import to_device
+
 # Reserved key code for padding rows: sorts after every real key and never
 # equals a probe key.
 PAD_KEY = np.int32(2**31 - 1)
@@ -138,7 +140,7 @@ class IntervalIndex:
         self._cov = None
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+        return to_device(a, self.device)
 
     # -- BITS view ----------------------------------------------------------
     def _build_bits(self):

@@ -42,6 +42,7 @@ from sequila_tpu_torch.errors import ExecutionError
 from sequila_tpu_torch.native.loader import expand_runs, repeat_counts
 from sequila_tpu_torch.ops.interval_index import IntervalIndex
 from sequila_tpu_torch.ops.ranks import composite, rank_lex_sort
+from sequila_tpu_torch.utils.metrics import count, span, to_host
 
 INT32_MIN = -(2**31)
 INT32_MAX = 2**31 - 1
@@ -214,7 +215,7 @@ def counts_bits_fused(lk, ls, le, rk, rs, re, remap_l, remap_r):
 def total_count_i64(counts) -> int:
     """Host-side exact int64 total of a device counts vector (the JAX
     package's int32 bucket sums and their build-size guard are gone)."""
-    return int(counts.sum(dtype=torch.int64))
+    return int(to_host(counts.sum(dtype=torch.int64)))
 
 
 def _counts_bits(bs_keys, bs_starts, be_keys, be_ends, qk, qs, qe):
@@ -349,7 +350,7 @@ def materialize_pairs_window(index: IntervalIndex, qk, qs, qe):
     lo_q = sat_sub_i32(qs, max_len)
     lb, ub = _window_ranks(keys, starts, qk, lo_q, qe)
     # int64: a dense whole-genome window can exceed int32
-    total_cand = int(torch.clamp(ub.to(torch.int64) - lb, min=0).sum())
+    total_cand = int(to_host(torch.clamp(ub.to(torch.int64) - lb, min=0).sum()))
     if total_cand == 0:
         return np.empty(0, np.int32), np.empty(0, np.int32), 0
     if total_cand >= _EMIT_LIMIT:
@@ -360,8 +361,8 @@ def materialize_pairs_window(index: IntervalIndex, qk, qs, qe):
     b_rows, p_rows, valid = _emit_window(
         keys, starts, ends, pos, lo_q, qk, qs, qe, capacity=total_cand
     )
-    b = b_rows[valid].cpu().numpy()
-    p = p_rows[valid].cpu().numpy()
+    b = to_host(b_rows[valid])
+    p = to_host(p_rows[valid])
     return b, p, len(b)
 
 
@@ -466,7 +467,9 @@ def _to_host_async(t: torch.Tensor):
     event.record(torch.cuda.current_stream(t.device))
 
     def wait() -> np.ndarray:
-        event.synchronize()
+        with span("device_wait", bytes=host.numel() * host.element_size()):
+            event.synchronize()
+        count("d2h_bytes", host.numel() * host.element_size())
         return host.numpy()
 
     return wait
@@ -503,7 +506,7 @@ def materialize_pairs_from_bounds(index: IntervalIndex, lb, ub):
     ('runs', 'bounds' or 'emit').  Every strategy yields the same rows in
     the same order: probe-major, level-minor, ascending within a run.  The
     JAX package sizes buffers to XLA buckets; the port sizes them exactly."""
-    packed = _counts_and_nnz(lb, ub).cpu().numpy()
+    packed = to_host(_counts_and_nnz(lb, ub))
     counts, nnz, maxrun = packed[:-2], int(packed[-2]), int(packed[-1])
     total = int(counts.astype(np.int64).sum())
     if total >= _EMIT_LIMIT:
@@ -535,7 +538,7 @@ def materialize_pairs_from_bounds(index: IntervalIndex, lb, ub):
         offsets, lb_pm, index.pos, capacity=total,
         num_levels=index.num_levels, level_offsets=index.level_offsets,
     )
-    return build_rows.cpu().numpy(), _probe_ids(counts, total), total
+    return to_host(build_rows), _probe_ids(counts, total), total
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ from sequila_tpu_torch.exec.joins.nl_join import NestedLoopJoinExec
 from sequila_tpu_torch.exec.plan import AggregateExec, ExecPlan
 from sequila_tpu_torch.models.table import Table
 from sequila_tpu_torch.planner.expr import Literal
+from sequila_tpu_torch.utils.metrics import span
 from sequila_tpu_torch.planner.intervals import parse
 from sequila_tpu_torch.utils.logging import get_logger
 
@@ -190,11 +191,12 @@ class IntervalCountExec(ExecPlan):
 
     def execute(self, ctx):
         total = self.children[0].count_rows(ctx)
-        return Table(
-            pa.Table.from_arrays(
-                [pa.array(np.asarray([total], np.int64))], names=[self.out_name]
+        with span("join.assemble", rows=1):
+            return Table(
+                pa.Table.from_arrays(
+                    [pa.array(np.asarray([total], np.int64))], names=[self.out_name]
+                )
             )
-        )
 
     def display_line(self):
         return f"IntervalCountExec: aggr=[{self.out_name}]"

@@ -19,6 +19,7 @@ when it is named; a session on a missing card fails at construction.
 from __future__ import annotations
 
 import os
+import time
 from contextlib import contextmanager
 
 import numpy as np
@@ -40,6 +41,7 @@ from sequila_tpu_torch.planner.optimizer import (
 from sequila_tpu_torch.sql import ast
 from sequila_tpu_torch.sql.parser import parse_sql
 from sequila_tpu_torch.utils.logging import get_logger
+from sequila_tpu_torch.utils.metrics import PROGRAM, collecting, merge_into_chrome_trace, span
 
 log = get_logger(__name__)
 
@@ -150,12 +152,16 @@ class SessionContext:
     # -- SQL ----------------------------------------------------------------
     def sql(self, text: str) -> Table | None:
         """Execute one or more ;-separated statements; returns the result of
-        the last result-producing statement."""
+        the last result-producing statement.  Recorded as the root span
+        ``session.sql`` over ``session.parse`` and each statement's spans."""
         result: Table | None = None
-        for stmt in parse_sql(text):
-            out = self._execute_statement(stmt)
-            if out is not None:
-                result = out
+        with span("session.sql"):
+            with span("session.parse"):
+                stmts = parse_sql(text)
+            for stmt in stmts:
+                out = self._execute_statement(stmt)
+                if out is not None:
+                    result = out
         return result
 
     def sql_batches(self, text: str):
@@ -167,7 +173,8 @@ class SessionContext:
         bounded batches of ~4x max_output_batch_size rows; barrier plans
         (sorts, aggregates) and non-SELECT statements yield one batch.
         Leading ;-separated statements (SET, DDL) are executed first."""
-        stmts = parse_sql(text)
+        with span("session.parse"):
+            stmts = parse_sql(text)
         for stmt in stmts[:-1]:
             self._execute_statement(stmt)
         yield from self._statement_batches(stmts[-1])
@@ -178,8 +185,9 @@ class SessionContext:
                 yield from self._statement_batches(stmt.body)
             return
         if isinstance(stmt, ast.Select):
-            plan = self.create_physical_plan(stmt)
             ctx = ExecContext(self.config.copy())
+            with collecting(ctx.metrics):
+                plan = self.create_physical_plan(stmt)
             yield from plan.execute_batches(ctx)
             self.last_metrics = ctx.metrics
             return
@@ -674,15 +682,17 @@ class SessionContext:
 
     # -- planning + execution ----------------------------------------------
     def create_physical_plan(self, sel: ast.Select):
-        plan = Binder(
-            self.catalog, runner=self._run_query, views=self.views,
-            view_guard=self._view_guard, info_schema=self._info_schema, device=self.device,
-        ).bind_select(sel)
-        plan = PredicatePushdownRule().optimize(plan)
-        plan = IntervalJoinRule(self.config, self.device).optimize(plan)
-        plan = ProjectionPushdownRule().optimize(plan)
-        plan = CountFastPathRule().optimize(plan)
-        return plan
+        """The optimized physical plan of ``sel``, recorded as the span
+        ``session.plan`` (a genomic table function runs its verb here)."""
+        with span("session.plan"):
+            plan = Binder(
+                self.catalog, runner=self._run_query, views=self.views,
+                view_guard=self._view_guard, info_schema=self._info_schema, device=self.device,
+            ).bind_select(sel)
+            plan = PredicatePushdownRule().optimize(plan)
+            plan = IntervalJoinRule(self.config, self.device).optimize(plan)
+            plan = ProjectionPushdownRule().optimize(plan)
+            return CountFastPathRule().optimize(plan)
 
     def plan_sql(self, text: str):
         """Parse a single SELECT and return its optimized physical plan."""
@@ -695,27 +705,38 @@ class SessionContext:
         return self.create_physical_plan(sel)
 
     def _run_select(self, sel: ast.Select) -> Table:
-        plan = self.create_physical_plan(sel)
+        """Plan and execute ``sel``; the counters of both (the verbs'
+        routes, the kernels' launches) go to the query's metrics."""
         ctx = ExecContext(self.config.copy())
-        profile_dir = os.environ.get("SEQUILA_PROFILE")
-        if profile_dir:
-            # host + device tracing (the reference's flamegraph/RUST_LOG
-            # analog): one Chrome trace per query, for chrome://tracing or
-            # Perfetto
-            from torch.profiler import ProfilerActivity, profile
-
-            acts = [ProfilerActivity.CPU]
-            if self.device.type == "cuda":
-                acts.append(ProfilerActivity.CUDA)
-            with profile(activities=acts) as prof:
+        with collecting(ctx.metrics):
+            plan = self.create_physical_plan(sel)
+            profile_dir = os.environ.get("SEQUILA_PROFILE")
+            if profile_dir:
+                out = self._profiled(plan, ctx, profile_dir)
+            else:
                 out = plan.execute(ctx)
-            os.makedirs(profile_dir, exist_ok=True)
-            prof.export_chrome_trace(
-                os.path.join(profile_dir, f"trace_{os.getpid()}_{id(plan):x}.json")
-            )
-        else:
-            out = plan.execute(ctx)
         self.last_metrics = ctx.metrics
+        return out
+
+    def _profiled(self, plan, ctx, profile_dir: str) -> Table:
+        """Execute under torch.profiler (the reference's flamegraph/RUST_LOG
+        analog): one Chrome trace per query, for chrome://tracing or
+        Perfetto, holding the host's operators, the card's kernels and
+        copies, and the program's spans and counters (category
+        ``program``)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        lo = time.time_ns()
+        with profile(activities=acts) as prof:
+            out = plan.execute(ctx)
+        hi = time.time_ns()
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"trace_{os.getpid()}_{id(plan):x}.json")
+        prof.export_chrome_trace(path)
+        merge_into_chrome_trace(path, lo, hi)
         return out
 
     def _run_union(self, u: ast.Union) -> Table:
@@ -786,12 +807,14 @@ class SessionContext:
             text = self._explain_set_op(target, analyze=stmt.analyze)
             kind = "Plan with Metrics" if stmt.analyze else "physical_plan"
             return Table(pa.table({"plan_type": [kind], "plan": [text]}))
-        plan = self.create_physical_plan(stmt.stmt)
+        ctx = ExecContext(self.config.copy(), collect_metrics=True)
+        with collecting(ctx.metrics):
+            plan = self.create_physical_plan(stmt.stmt)
+            if stmt.analyze:
+                plan.execute(ctx)
         show_stats = self._show_statistics()
         if stmt.analyze:
-            ctx = ExecContext(self.config.copy(), collect_metrics=True)
-            plan.execute(ctx)
-            text = plan.explain(metrics=ctx.metrics, show_stats=show_stats)
+            text = _explain_analyzed(plan, ctx.metrics, show_stats)
             return Table(
                 pa.table({"plan_type": ["Plan with Metrics"], "plan": [text]})
             )
@@ -817,19 +840,28 @@ class SessionContext:
             if isinstance(s, ast.Union):
                 lines.append(self._explain_set_op(s, analyze, indent + "  "))
                 continue
-            plan = self.create_physical_plan(s)
+            ctx = ExecContext(self.config.copy(), collect_metrics=True)
+            with collecting(ctx.metrics):
+                plan = self.create_physical_plan(s)
+                if analyze:
+                    plan.execute(ctx)
             if analyze:
-                ctx = ExecContext(self.config.copy(), collect_metrics=True)
-                plan.execute(ctx)
-                text = plan.explain(
-                    metrics=ctx.metrics, show_stats=self._show_statistics()
-                )
+                text = _explain_analyzed(plan, ctx.metrics, self._show_statistics())
             else:
                 text = plan.explain(show_stats=self._show_statistics())
             lines.append(
                 "\n".join(indent + "  " + ln for ln in text.splitlines())
             )
         return "\n".join(lines)
+
+
+def _explain_analyzed(plan, metrics, show_stats: bool) -> str:
+    """EXPLAIN ANALYZE's text: the plan with each operator's metrics, then
+    the counters no operator owns (kernel launches, verb routes, bytes
+    copied), where there are any."""
+    text = plan.explain(metrics=metrics, show_stats=show_stats)
+    program = metrics.format_op(PROGRAM)
+    return f"{text}\nProgram: metrics=[{program}]" if program else text
 
 
 def _align_by_name(t: Table, names: list) -> Table:

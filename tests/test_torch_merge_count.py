@@ -29,6 +29,7 @@ from sequila_tpu_torch.ops.cuda import merge_count as tmc
 from sequila_tpu_torch.planner.expr import Column as TorchColumn
 from sequila_tpu_torch.planner.intervals import ColInterval as TorchCI
 from sequila_tpu_torch.planner.intervals import ColIntervals as TorchCIs
+from sequila_tpu_torch.utils import metrics
 
 CPU = torch.device("cpu")
 
@@ -251,10 +252,11 @@ class TestWrapperContract:
             tmc.pack_view(q, q[:3], q, tmc.BUILD_PAD)
 
     def test_cpu_tensors_launch_no_kernel(self, rng):
-        before = (tmc.pack_view.launches, tmc.merge_rank_sorted.launches)
         _, tplan = _plans(*_tables(rng, 200, 300))
-        tmc.merge_count_passes(*tplan)
-        assert (tmc.pack_view.launches, tmc.merge_rank_sorted.launches) == before
+        with metrics.recording() as rec:
+            tmc.merge_count_passes(*tplan)
+        got = rec.counts()
+        assert (got["launch.pack_view"], got["launch.merge_path"]) == (0, 0)
 
 
 @pytest.fixture
@@ -270,11 +272,11 @@ class TestKernelsOnCard:
     def test_merge_rank_kernel_equals_plain(self, rng, cuda_device, strict):
         a = to_torch(_sorted_u32(rng, 300_001), cuda_device)
         q = to_torch(_sorted_u32(rng, 70_003), cuda_device)
-        before = tmc.merge_rank_sorted.launches
-        got = tmc.merge_rank_sorted(a, q, strict=strict)
-        total = tmc.merge_rank_sorted(a, q, strict=strict, reduce=True)
+        with metrics.recording() as rec:
+            got = tmc.merge_rank_sorted(a, q, strict=strict)
+            total = tmc.merge_rank_sorted(a, q, strict=strict, reduce=True)
         torch.cuda.synchronize()
-        assert tmc.merge_rank_sorted.launches == before + 2
+        assert rec.counts()["launch.merge_path"] == 2
         want = tmc.merge_rank_plain(a, q, strict=strict)
         assert torch.equal(got, want)
         assert int(total) == int(want.to(torch.int64).sum())

@@ -37,6 +37,7 @@ from sequila_tpu_torch.ops.cuda import merge_count as tmc
 from sequila_tpu_torch.ops.interval_join import materialize_pairs_from_bounds
 from sequila_tpu_torch.planner import expr as texpr
 from sequila_tpu_torch.planner import intervals as tiv
+from sequila_tpu_torch.utils import metrics
 
 PKGS = {
     "jax": (jexpr, jiv, JaxJoin, JaxScan, JaxTable, JaxAlgorithm,
@@ -282,8 +283,9 @@ def test_execute_on_card_matches_cpu(rng, monkeypatch, cuda_device, backend):
     merge route launches B1 and pack_view."""
     lt, rt = _tables(rng, 500, 800, degenerate=0.1, inverted=0.1)
     want, _, _ = _execute("torch", lt, rt, backend, monkeypatch)
-    tmc.merge_rank_sorted.launches = tmc.pack_view.launches = 0
-    got, _, route = _execute("torch", lt, rt, backend, monkeypatch, device=cuda_device)
+    with metrics.recording() as rec:
+        got, _, route = _execute("torch", lt, rt, backend, monkeypatch, device=cuda_device)
     assert got == want and len(got) > 0
-    launched = tmc.merge_rank_sorted.launches > 0 and tmc.pack_view.launches > 0
+    launches = rec.counts()
+    launched = launches["launch.merge_path"] > 0 and launches["launch.pack_view"] > 0
     assert launched == (route == "merge")

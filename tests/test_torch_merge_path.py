@@ -36,6 +36,7 @@ from sequila_tpu_torch.models.table import Table as TorchTable
 from sequila_tpu_torch.ops.cuda import merge_count as tmc
 from sequila_tpu_torch.planner import expr as texpr
 from sequila_tpu_torch.planner import intervals as tiv
+from sequila_tpu_torch.utils import metrics
 
 CPU = torch.device("cpu")
 CU = os.path.join(os.path.dirname(tmc.__file__), "..", "..", "csrc", "merge_rank.cu")
@@ -412,10 +413,10 @@ def test_contract_rejects_bad_plans_and_slots():
 
 
 def test_cpu_launches_no_kernel(rng):
-    before_ = tmc.merge_rank_sorted.launches
     segs, slots = mixed_segments(rng)
-    tmc.merge_rank_segments(tmc.plan_segments(segs, CPU), slots)
-    assert tmc.merge_rank_sorted.launches == before_
+    with metrics.recording() as rec:
+        tmc.merge_rank_segments(tmc.plan_segments(segs, CPU), slots)
+    assert rec.counts()["launch.merge_path"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -438,10 +439,10 @@ def test_mixed_segments_kernel_equals_plain(rng, cuda_device):
     cpu_segs = [s._replace(ord=None if s.ord is None else s.ord.cpu(),
                            raw=None if s.raw is None else (*(t.cpu() for t in s.raw[:3]), s.raw[3]))
                 for s in segs]
-    before_ = tmc.merge_rank_sorted.launches
-    tmc.merge_rank_segments(tmc.plan_segments(segs, cuda_device), slots)
+    with metrics.recording() as rec:
+        tmc.merge_rank_segments(tmc.plan_segments(segs, cuda_device), slots)
     torch.cuda.synchronize()
-    assert tmc.merge_rank_sorted.launches == before_ + 1
+    assert rec.counts()["launch.merge_path"] == 1
     tmc.merge_rank_segments_plain(cpu_segs, plain)
     for got, want in zip(slots, plain):
         assert torch.equal(got.cpu(), want)

@@ -27,6 +27,7 @@ from sequila_tpu.ops.pallas import stream_rank as jsr
 from sequila_tpu_torch.ops.cuda import pair_merge as pm
 from sequila_tpu_torch.ops.cuda import stream_rank as tsr
 from sequila_tpu_torch.ops.ranks import composite
+from sequila_tpu_torch.utils import metrics
 
 CPU = torch.device("cpu")
 CU = os.path.join(os.path.dirname(pm.__file__), "..", "..", "csrc", "pair_merge.cu")
@@ -377,10 +378,10 @@ def test_contract_rejects_bad_plans_and_slots():
 
 
 def test_cpu_launches_no_kernel(rng):
-    before_ = (pm.pair_merge_segments.launches, tsr.stream_rank_sorted.launches)
     segs, slots = mixed_segments(rng)
-    pm.pair_merge_segments(pm.plan_pair_segments(segs, CPU), slots)
-    assert (pm.pair_merge_segments.launches, tsr.stream_rank_sorted.launches) == before_
+    with metrics.recording() as rec:
+        pm.pair_merge_segments(pm.plan_pair_segments(segs, CPU), slots)
+    assert rec.counts()["launch.pair_merge"] == 0
 
 
 def _stream_plan(rng, deltas):
@@ -452,10 +453,10 @@ def test_mixed_segments_kernel_equals_plain(rng, cuda_device):
     """One launch (descriptors on the card) of every edge segment."""
     segs, slots = mixed_segments(rng, cuda_device)
     plain = tuple(t.cpu().clone() for t in slots)
-    before_ = pm.pair_merge_segments.launches
-    pm.pair_merge_segments(pm.plan_pair_segments(segs, cuda_device), slots)
+    with metrics.recording() as rec:
+        pm.pair_merge_segments(pm.plan_pair_segments(segs, cuda_device), slots)
     torch.cuda.synchronize()
-    assert pm.pair_merge_segments.launches == before_ + 1
+    assert rec.counts()["launch.pair_merge"] == 1
     pm.pair_segments_plain(segs, plain)
     for got, want in zip(slots, plain):
         assert torch.equal(got.cpu(), want)

@@ -30,6 +30,7 @@ from sequila_tpu_torch.exec.context import ExecContext as TorchCtx
 from sequila_tpu_torch.ops.cuda import merge_count as tmc
 from sequila_tpu_torch.planner import expr as texpr
 from sequila_tpu_torch.planner import intervals as tiv
+from sequila_tpu_torch.utils import metrics
 from test_torch_interval_count import (
     _degenerate_probe,
     _dup,
@@ -394,12 +395,13 @@ def test_warm_device_probe_count_launches_b1_once(rng, monkeypatch, cuda_device)
     want = _join("torch", lt, rt)[0].per_probe_counts(TorchCtx(TorchConfig()))
     join, _, _ = _join("torch", lt, rt, device=cuda_device)
     join.per_probe_counts(TorchCtx(TorchConfig()))  # plans and uploads
-    counters = (tmc.merge_rank_sorted, tmc.pack_view, tmc.unpermute_counts)
-    before = [c.launches for c in counters]
     ctx = TorchCtx(TorchConfig())
-    got = join.per_probe_counts(ctx)
+    with metrics.recording() as rec:
+        got = join.per_probe_counts(ctx)
     assert _route(ctx, join.op_id()) == "merge"
-    assert [c.launches - x for c, x in zip(counters, before)] == [1, 2, 1]
+    launches = rec.counts()
+    assert [launches[f"launch.{k}"] for k in ("merge_path", "pack_view", "unpermute_counts")] \
+        == [1, 2, 1]
     np.testing.assert_array_equal(got, want)
     # the un-permute kernel alone against its plain version
     ranks, inv_e, inv_s = (t.to(cuda_device) for t in _ranks_and_inverses(rng, 70_001))

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from sequila_tpu.ops.pallas import rank_kernel as jrk
 from sequila_tpu.ops.ranks import np_rank_lex
 from sequila_tpu_torch.ops.cuda import rank_kernel as trk
+from sequila_tpu_torch.utils import metrics
 
 
 def _t(a, device="cpu") -> torch.Tensor:
@@ -123,10 +124,10 @@ class TestWrapperContract:
             trk.rank_sorted_resident(q.long(), q, q, q, strict=True)
 
     def test_cpu_tensors_launch_no_kernel(self, rng):
-        before = trk.rank_sorted_resident.launches
         b = _t(rng.integers(0, 9, 3000).astype(np.int32))
-        trk.rank_lex_resident((b, b), (b, b))
-        assert trk.rank_sorted_resident.launches == before
+        with metrics.recording() as rec:
+            trk.rank_lex_resident((b, b), (b, b))
+        assert rec.counts()["launch.pair_merge"] == 0
 
 
 @pytest.fixture
@@ -148,11 +149,11 @@ class TestKernelOnCard:
         qv = rng.integers(-(2**31), 2**31 - 1, m, dtype=np.int64).astype(np.int32)
         qo = np.lexsort((qv, qk))
         args = [_t(x, cuda_device) for x in (k[order], v[order], qk[qo], qv[qo])]
-        before = trk.rank_sorted_resident.launches
-        got = trk.rank_sorted_resident(*args, strict=strict)
-        total = trk.rank_sorted_resident(*args, strict=strict, reduce=True)
+        with metrics.recording() as rec:
+            got = trk.rank_sorted_resident(*args, strict=strict)
+            total = trk.rank_sorted_resident(*args, strict=strict, reduce=True)
         torch.cuda.synchronize()
-        assert trk.rank_sorted_resident.launches == before + 2
+        assert rec.counts()["launch.pair_merge"] == 2
         want = trk.rank_resident_plain(*args, strict=strict)
         assert torch.equal(got, want)
         assert int(total) == int(want.to(torch.int64).sum())

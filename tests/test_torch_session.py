@@ -20,6 +20,7 @@ import bench
 from sequila_tpu.session import SessionContext as JaxSession
 from sequila_tpu_torch import bench_data
 from sequila_tpu_torch.session import SessionContext as TorchSession
+from sequila_tpu_torch.utils import metrics
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -216,14 +217,12 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_sql_count_on_card_matches_jax(sessions, monkeypatch, cuda_device):
-    from sequila_tpu_torch.ops.cuda import merge_count as mc
-
     monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "0")
     jax_ctx, cpu_ctx = sessions
     ctx = TorchSession(device=cuda_device)
     for name in ("a", "b"):
         ctx.register_table(name, cpu_ctx.table(name))
-    before = mc.merge_rank_sorted.launches
-    for q in QUERIES.values():
-        assert _count(ctx, q) == _count(jax_ctx, q)
-    assert mc.merge_rank_sorted.launches > before
+    with metrics.recording() as rec:
+        for q in QUERIES.values():
+            assert _count(ctx, q) == _count(jax_ctx, q)
+    assert rec.counts()["launch.merge_path"] > 0

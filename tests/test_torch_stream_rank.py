@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from sequila_tpu.ops.pallas import stream_rank as jsr
 from sequila_tpu_torch.ops.cuda import stream_rank as tsr
+from sequila_tpu_torch.utils import metrics
 
 PAD = 2**31 - 1
 
@@ -190,10 +191,10 @@ class TestWrapperContract:
             tsr.stream_rank_sorted(a2, w, w, q, q.to("meta"), strict=True)
 
     def test_cpu_tensors_launch_no_kernel(self, rng):
-        before = tsr.stream_rank_sorted.launches
-        tsr.rank_lex_stream((_t(np.arange(5000, dtype=np.int32)),) * 2,
-                            (_t(np.arange(300, dtype=np.int32)),) * 2)
-        assert tsr.stream_rank_sorted.launches == before
+        with metrics.recording() as rec:
+            tsr.rank_lex_stream((_t(np.arange(5000, dtype=np.int32)),) * 2,
+                                (_t(np.arange(300, dtype=np.int32)),) * 2)
+        assert rec.counts()["launch.pair_merge"] == 0
 
 
 @pytest.fixture
@@ -214,11 +215,11 @@ class TestKernelOnCard:
         qk, qv = _sorted_queries(rng, m, m_real, nkeys=41)
         c_lo, n_ch = tsr.host_windows(ak, av, qk, qv)
         args = [_t(x, cuda_device) for x in (np.stack([ak, av]), c_lo, n_ch, qk, qv)]
-        before = tsr.stream_rank_sorted.launches
-        got = tsr.stream_rank_sorted(*args, strict=strict)
-        total = tsr.stream_rank_sorted(*args, strict=strict, reduce=True)
+        with metrics.recording() as rec:
+            got = tsr.stream_rank_sorted(*args, strict=strict)
+            total = tsr.stream_rank_sorted(*args, strict=strict, reduce=True)
         torch.cuda.synchronize()
-        assert tsr.stream_rank_sorted.launches == before + 2
+        assert rec.counts()["launch.pair_merge"] == 2
         want = tsr.stream_rank_plain(*args, strict=strict)
         assert torch.equal(got, want)
         assert int(total) == int(want.to(torch.int64).sum())
@@ -245,10 +246,11 @@ class TestKernelOnCard:
                 device=device,
             )
             plan = join._stream_count_plan(lt, rt, *join._sorted_count_inputs(lt, rt))
-            before = tsr.stream_rank_sorted.launches
-            counts.append(int(tsr.stream_count_passes(*plan, d_bs=0, d_be=-1, d_qs=0, d_qe=0)))
+            with metrics.recording() as rec:
+                counts.append(int(tsr.stream_count_passes(*plan, d_bs=0, d_be=-1, d_qs=0,
+                                                          d_qe=0)))
             torch.cuda.synchronize()
-            assert tsr.stream_rank_sorted.launches == before + (device != "cpu")
+            assert rec.counts()["launch.pair_merge"] == (device != "cpu")
         assert counts[0] == counts[1] > 0
 
     def test_rank_lex_stream_on_card(self, rng, cuda_device):

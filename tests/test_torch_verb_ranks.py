@@ -28,6 +28,7 @@ from sequila_tpu.ops.pallas import merge_count as jmc
 from sequila_tpu_torch import dataframe as tdf
 from sequila_tpu_torch.models.table import Table as TorchTable
 from sequila_tpu_torch.ops.cuda import merge_count as tmc
+from sequila_tpu_torch.utils import metrics
 from test_torch_interval_count import _degenerate_probe, _dup, _inverted_build, _tables, _wide
 
 COLS = (0, 1, 2)  # (contig, s, e) of the helpers' tables
@@ -260,11 +261,12 @@ def test_warm_verb_rank4_launches_b1_once(rng, cuda_device):
     want = tmc.merge_verb_rank4(cpu_plan)
     _, plan, _ = _plans(b, a, want4=True, device=cuda_device)
     tmc.merge_verb_rank4(plan)
-    counters = (tmc.merge_rank_sorted, tmc.pack_view, tmc.unpermute_ranks)
-    before = [c.launches for c in counters]
-    got = tmc.merge_verb_rank4(plan)
+    with metrics.recording() as rec:
+        got = tmc.merge_verb_rank4(plan)
     torch.cuda.synchronize()
-    assert [c.launches - x for c, x in zip(counters, before)] == [1, 4, 1]
+    launches = rec.counts()
+    assert [launches[f"launch.{k}"] for k in ("merge_path", "pack_view", "unpermute_ranks")] \
+        == [1, 4, 1]
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
     np.testing.assert_array_equal(tmc.merge_verb_rank4_plain(plan).cpu().numpy(), want.numpy())
     # the un-permute kernel alone against its plain version

@@ -119,15 +119,15 @@ class Sweep:
 
     def check_verbs(self, a, b, device) -> None:
         from sequila_tpu_torch import dataframe as gdf
-        from sequila_tpu_torch.ops.cuda import merge_count as mc
+        from sequila_tpu_torch.utils import metrics
 
         for name, verb in (("coverage", gdf.coverage), ("count_overlaps", gdf.count_overlaps)):
             out, b1 = [], []
             for route in (DEVICE_ROUTE, HOST_ROUTE):
                 os.environ["SEQUILA_HOST_THRESHOLD"] = route
-                before = mc.merge_rank_sorted.launches
-                out.append(verb(a, b, device=device))
-                b1.append(mc.merge_rank_sorted.launches - before)
+                with metrics.recording() as rec:
+                    out.append(verb(a, b, device=device))
+                b1.append(rec.counts()["launch.merge_path"])
             dev, host = rows_of(out[0]), rows_of(out[1])
             # kernels launch on the card; on the CPU the plain versions run
             ok = dev == host and (b1[0] > 0) == (device == "cuda") and b1[1] == 0
