@@ -66,6 +66,13 @@ Phases, each of which exits non-zero when it fails:
    bounds (with int64 orders and with int32 inverse orders) and two
    torch.searchsorted with two index_copy_ and a subtraction, and
    merge_probe_count_passes whole;
+4g. one sorted view of the genome probe table (7,684,066 rows) built on
+   the card (models/table.py::build_sorted_view: one stable torch.sort of
+   the (code, value) composite, the keys, values and order split from it)
+   and its per-key extrema (view_key_extrema), both equal to the host
+   build's (the native radix argsort and its gathers; the per-key
+   extrema's second sort) and timed beside it: CUDA events on the card,
+   the host clock on the host;
 5a. the materializing ``SELECT *`` at the 15M-row pairing
    (``gen_chain_table(20_000, 13)`` x ``gen_chain_table(300_000, 14)``):
    the host route for reference, then the device route on the merge
@@ -783,6 +790,51 @@ def phase_main_path(torch, card):
         fail(f"a warm merge count(*) launched {warm}, expected B1 once and pack_view 4 times")
     print(f"warm {name} count(*): B1 launched once, pack_view 4 times")
     return sessions, merge_launches
+
+
+def phase_view_build(torch, t2: dict, card) -> dict:
+    """4g: a view of ``t2`` by (contig, pos_start) built on the card and on
+    the host, equal, with the per-key extrema, and timed."""
+    print("== phase 4g: a sorted view built on the card beside the host build", flush=True)
+    import pyarrow as pa
+
+    from sequila_tpu_torch.models.table import Table, build_sorted_view, view_key_extrema
+
+    host = Table(pa.table(t2))
+    codes, values, _ = host.dict_codes(0)
+    vals = host.column_as_i32(1)
+    host_ms, minmax_ms = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        hk, hv, hn, horder = host._sort_view_host(0, 1)
+        t1 = time.perf_counter()
+        mins, maxs = Table._per_key_minmax(codes, len(values), vals)
+        host_ms.append((t1 - t0) * 1e3)
+        minmax_ms.append((time.perf_counter() - t1) * 1e3)
+    dev = torch.device("cuda")
+    d_codes, d_vals = torch.tensor(codes, device=dev), torch.tensor(vals, device=dev)
+    keys, v, n, order = build_sorted_view(d_codes, d_vals)
+    ext = view_key_extrema(keys, v, n, len(values)).cpu().numpy()
+    for name, got, want in (("keys", keys, hk), ("values", v, hv), ("order", order, horder)):
+        if not np.array_equal(got.cpu().numpy(), want):
+            fail(f"phase 4g: the card's view {name} differ from the host build's")
+    if n != hn or not (np.array_equal(ext[0], mins) and np.array_equal(ext[1], maxs)):
+        fail("phase 4g: the card's per-key extrema differ from the host's")
+    out = {
+        "rows": n,
+        "device_ms": time_events(torch, lambda: build_sorted_view(d_codes, d_vals), 20),
+        "device_shared_keys_ms": time_events(
+            torch, lambda: build_sorted_view(d_codes, d_vals, keys), 20),
+        "device_extrema_ms": time_events(
+            torch, lambda: view_key_extrema(keys, v, n, len(values)), 20),
+        "host_ms": host_ms,
+        "host_extrema_ms": minmax_ms,
+    }
+    print(f"view build of {n} rows: card {out['device_ms']:.3f} ms (keys shared "
+          f"{out['device_shared_keys_ms']:.3f} ms), extrema {out['device_extrema_ms']:.4f} ms; "
+          f"host {host_ms[0]:.1f} / {host_ms[1]:.1f} ms, its extrema {minmax_ms[0]:.1f} / "
+          f"{minmax_ms[1]:.1f} ms; equal [{card}]", flush=True)
+    return out
 
 
 def phase_backends(torch, sessions):
@@ -2653,6 +2705,7 @@ def main(only_multiprocess: bool = False, only_checks: bool = False) -> None:
         return
     err = phase_kernels(torch, dev)
     sessions, merge_launches = phase_main_path(torch, card)
+    phase_view_build(torch, sessions[1][4], card)
     stream_launches = phase_backends(torch, sessions)
     phase_level(torch, sessions, card)
     resident_launches, resident_cols = phase_resident(torch, dev)

@@ -553,9 +553,9 @@ class IntervalJoinExec(ExecPlan):
             return None
         # degenerate probes (qs_adj > qe_adj) and inverted build intervals
         # break BITS: host min-gap checks (cached table statistics)
-        if right.min_i32_diff(qe_cd[0], qs_cd[0]) + qe_cd[1] - qs_cd[1] < 0:
+        if right.min_i32_diff(qe_cd[0], qs_cd[0], self.device) + qe_cd[1] - qs_cd[1] < 0:
             return None
-        if left.min_i32_diff(be_cd[0], bs_cd[0]) + be_cd[1] - bs_cd[1] < 0:
+        if left.min_i32_diff(be_cd[0], bs_cd[0], self.device) + be_cd[1] - bs_cd[1] < 0:
             return None
 
         lcodes, lvals, _ = left.dict_codes(l_on.index)
@@ -610,10 +610,10 @@ class IntervalJoinExec(ExecPlan):
         from sequila_tpu_torch.ops.cuda import merge_count as mc
 
         views = (
-            left.per_key_minmax(l_on.index, bs_cd[0]),
-            left.per_key_minmax(l_on.index, be_cd[0]),
-            right.per_key_minmax(r_on.index, qs_cd[0]),
-            right.per_key_minmax(r_on.index, qe_cd[0]),
+            left.per_key_minmax(l_on.index, bs_cd[0], self.device),
+            left.per_key_minmax(l_on.index, be_cd[0], self.device),
+            right.per_key_minmax(r_on.index, qs_cd[0], self.device),
+            right.per_key_minmax(r_on.index, qe_cd[0], self.device),
         )
         deltas = (bs_cd[1], be_cd[1], qs_cd[1], qe_cd[1])
         ctabs = mc.plan_packing(remap_b, remap_q, views, deltas)
@@ -623,10 +623,10 @@ class IntervalJoinExec(ExecPlan):
         # cached sorted views: pass 1 ranks build(k,end) in probe(k,qs);
         # pass 2 ranks build(k,start) in probe(k,qe)
         dev = self.device
-        bl_k, bl_v, _, _, _ = left.sorted_interval_view(l_on.index, be_cd[0], dev)
-        pq_k, pq_v, _, _, _ = right.sorted_interval_view(r_on.index, qs_cd[0], dev)
-        bu_k, bu_v, _, _, _ = left.sorted_interval_view(l_on.index, bs_cd[0], dev)
-        pe_k, pe_v, _, _, _ = right.sorted_interval_view(r_on.index, qe_cd[0], dev)
+        bl_k, bl_v, _ = left.sorted_interval_view(l_on.index, be_cd[0], dev)
+        pq_k, pq_v, _ = right.sorted_interval_view(r_on.index, qs_cd[0], dev)
+        bu_k, bu_v, _ = left.sorted_interval_view(l_on.index, bs_cd[0], dev)
+        pe_k, pe_v, _ = right.sorted_interval_view(r_on.index, qe_cd[0], dev)
         return (
             bl_k, bl_v, c_be,
             pq_k, pq_v, c_qs,
@@ -675,12 +675,17 @@ class IntervalJoinExec(ExecPlan):
 
         dev = self.device
         # cached sorted views: build by start / by end; probe by end / start
-        bu_k, bu_v, bu_kh, bu_vh, _ = left.sorted_interval_view(l_on.index, bs_cd[0], dev)
-        bl_k, bl_v, bl_kh, bl_vh, _ = left.sorted_interval_view(l_on.index, be_cd[0], dev)
-        qu_k, qu_v, qu_kh, qu_vh, _ = right.sorted_interval_view(r_on.index, qe_cd[0], dev)
-        ql_k, ql_v, ql_kh, ql_vh, _ = right.sorted_interval_view(r_on.index, qs_cd[0], dev)
+        bu_k, bu_v, _ = left.sorted_interval_view(l_on.index, bs_cd[0], dev)
+        bl_k, bl_v, _ = left.sorted_interval_view(l_on.index, be_cd[0], dev)
+        qu_k, qu_v, _ = right.sorted_interval_view(r_on.index, qe_cd[0], dev)
+        ql_k, ql_v, _ = right.sorted_interval_view(r_on.index, qs_cd[0], dev)
         if qu_k.shape[0] != ql_k.shape[0]:
             return None
+        # their host twins, for the block windows
+        bu_kh, bu_vh, _ = left.sorted_interval_host(l_on.index, bs_cd[0])
+        bl_kh, bl_vh, _ = left.sorted_interval_host(l_on.index, be_cd[0])
+        qu_kh, qu_vh, _ = right.sorted_interval_host(r_on.index, qe_cd[0])
+        ql_kh, ql_vh, _ = right.sorted_interval_host(r_on.index, qs_cd[0])
 
         PADH = np.int32(2**31 - 1)
 
@@ -738,7 +743,7 @@ class IntervalJoinExec(ExecPlan):
         bs_cd = self._bound_col_delta(self.intervals.left_interval.start, left)
         be_cd = self._bound_col_delta(self.intervals.left_interval.end, left)
         if bs_cd is not None and be_cd is not None:
-            if left.min_i32_diff(be_cd[0], bs_cd[0]) + be_cd[1] - bs_cd[1] < 0:
+            if left.min_i32_diff(be_cd[0], bs_cd[0], self.device) + be_cd[1] - bs_cd[1] < 0:
                 return None  # inverted build intervals break BITS
         bounds = [
             self._device_bound(self.intervals.left_interval.start, left),
@@ -1281,10 +1286,10 @@ class IntervalJoinExec(ExecPlan):
             with span("join.plan"):
                 remap_b, remap_q = merge_dictionaries(lvals, rvals)
                 views = (
-                    left.per_key_minmax(l_on.index, bs_cd[0]),
-                    left.per_key_minmax(l_on.index, be_cd[0]),
-                    right.per_key_minmax(r_on.index, qs_cd[0]),
-                    right.per_key_minmax(r_on.index, qe_cd[0]),
+                    left.per_key_minmax(l_on.index, bs_cd[0], self.device),
+                    left.per_key_minmax(l_on.index, be_cd[0], self.device),
+                    right.per_key_minmax(r_on.index, qs_cd[0], self.device),
+                    right.per_key_minmax(r_on.index, qe_cd[0], self.device),
                 )
                 return index, mc.plan_level_bounds(
                     index, right, r_on.index, qs_cd, qe_cd, bs_cd, be_cd,
@@ -1536,10 +1541,10 @@ class IntervalJoinExec(ExecPlan):
         from sequila_tpu_torch.ops.cuda import merge_count as mc
 
         views = (
-            left.per_key_minmax(l_on.index, bs_cd[0]),
-            left.per_key_minmax(l_on.index, be_cd[0]),
-            right.per_key_minmax(r_on.index, qs_cd[0]),
-            right.per_key_minmax(r_on.index, qe_cd[0]),
+            left.per_key_minmax(l_on.index, bs_cd[0], self.device),
+            left.per_key_minmax(l_on.index, be_cd[0], self.device),
+            right.per_key_minmax(r_on.index, qs_cd[0], self.device),
+            right.per_key_minmax(r_on.index, qe_cd[0], self.device),
         )
         deltas = (bs_cd[1], be_cd[1], qs_cd[1], qe_cd[1])
         ctabs = mc.plan_packing(remap_b, remap_q, views, deltas)
@@ -1549,10 +1554,10 @@ class IntervalJoinExec(ExecPlan):
         c_be, c_qs, c_bs, c_qe = (mc.c_tab_tensor(c, dev) for c in ctabs)
         # pass A ranks probe(k,qe) in build(k,start); pass B ranks
         # probe(k,qs) in build(k,end): the queries are the PROBE views
-        pe_k, pe_v, _, _, _ = right.sorted_interval_view(r_on.index, qe_cd[0], dev)
-        bs_k, bs_v, _, _, _ = left.sorted_interval_view(l_on.index, bs_cd[0], dev)
-        pq_k, pq_v, _, _, _ = right.sorted_interval_view(r_on.index, qs_cd[0], dev)
-        be_k, be_v, _, _, _ = left.sorted_interval_view(l_on.index, be_cd[0], dev)
+        pe_k, pe_v, _ = right.sorted_interval_view(r_on.index, qe_cd[0], dev)
+        bs_k, bs_v, _ = left.sorted_interval_view(l_on.index, bs_cd[0], dev)
+        pq_k, pq_v, _ = right.sorted_interval_view(r_on.index, qs_cd[0], dev)
+        be_k, be_v, _ = left.sorted_interval_view(l_on.index, be_cd[0], dev)
         return mc.plan_probe_counts(
             pe_k, pe_v, c_qe, bs_k, bs_v, c_bs, pq_k, pq_v, c_qs, be_k, be_v, c_be,
             right.sorted_interval_inverse(r_on.index, qe_cd[0], dev),

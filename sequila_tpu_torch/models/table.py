@@ -19,7 +19,7 @@ import pyarrow as pa
 import torch
 
 from sequila_tpu_torch.errors import CastOverflowError, ExecutionError
-from sequila_tpu_torch.utils.metrics import span, to_device
+from sequila_tpu_torch.utils.metrics import count, span, to_device, to_host
 
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 
@@ -27,6 +27,66 @@ I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 def _device_key(device) -> str:
     """Cache key of a torch device ("cuda" and "cuda:0" stay distinct)."""
     return str(torch.device(device))
+
+
+def _on_card(device) -> bool:
+    """Whether a table's sorted views asked for on ``device`` are built
+    there, by a device sort: on a CUDA card, not on the CPU or with no
+    device named (the host's native radix sort)."""
+    return device is not None and torch.device(device).type == "cuda"
+
+
+# sorted views: real rows, then PAD slots up to a multiple of VIEW_CHUNK
+VIEW_PAD = 2**31 - 1
+VIEW_CHUNK = 2048
+
+
+def _view_pad(n: int) -> int:
+    return -(-max(n, 1) // VIEW_CHUNK) * VIEW_CHUNK
+
+
+def build_sorted_view(codes: torch.Tensor, vals: torch.Tensor, keys=None):
+    """(keys, values, n, order) of the view of int32 ``codes`` and
+    ``vals`` sorted by (code, value), on their device.
+
+    One stable ``torch.sort`` of the int64 composite (code << 32) |
+    (value + 2^31): rows that tie keep their order, so ``order`` (int32,
+    real rows only) is ``np.lexsort((vals, codes))``, and the keys and
+    values, split from the sorted composite by shift and mask, equal the
+    host build's.  Keys and values are int32, padded to a VIEW_CHUNK
+    multiple with VIEW_PAD.  ``keys``, the keys of another view of the same
+    codes, is returned as it is: the sorted codes are the same whatever the
+    value column."""
+    n = codes.shape[0]
+    comp = codes.to(torch.int64) << 32
+    comp |= vals.to(torch.int64) + 2**31
+    comp, order = torch.sort(comp, stable=True)
+    if keys is None:
+        keys = torch.full((_view_pad(n),), VIEW_PAD, dtype=torch.int32, device=codes.device)
+        keys[:n] = comp >> 32
+    values = torch.full((_view_pad(n),), VIEW_PAD, dtype=torch.int32, device=codes.device)
+    values[:n] = (comp & 0xFFFFFFFF) - 2**31
+    return keys, values, n, order.to(torch.int32)
+
+
+def view_key_extrema(keys: torch.Tensor, values: torch.Tensor, n: int, k: int):
+    """[2, k] int64 tensor on the view's device: each code's least value
+    (row 0) and greatest (row 1) in a sorted view, its segment's first
+    and last slot; int64 max and min for a code with no row."""
+    bounds = torch.searchsorted(
+        keys[:n], torch.arange(k + 1, dtype=torch.int32, device=keys.device)
+    )
+    first, end = bounds[:-1], bounds[1:]
+    present = end > first
+    last = keys.numel() - 1
+    lo = values[first.clamp(max=last)].to(torch.int64)
+    hi = values[(end - 1).clamp(0, last)].to(torch.int64)
+    i64 = torch.iinfo(torch.int64)
+    return torch.stack((
+        torch.where(present, lo, torch.full_like(lo, i64.max)),
+        torch.where(present, hi, torch.full_like(hi, i64.min)),
+    ))
+
 
 # Arrow compute kernels release the GIL, so a small shared pool lets big
 # gathers run one take per column across host cores (lazy — most queries
@@ -321,46 +381,83 @@ class Table:
             self._dev_i32[dkey] = to_device(codes, device)
         return codes, values, self._dev_i32[dkey]
 
+    def _device_view(self, key_col, val_col, device):
+        """(keys, values, n, order) int32 tensors of the sorted view, built
+        on ``device`` from the table's device codes and value column
+        (``build_sorted_view``), cached.  The views of one key column share
+        one keys tensor: it is the sorted codes whatever the value column."""
+        dkey = _device_key(device)
+        cache_key = ("sivd", key_col, val_col, dkey)
+        if cache_key not in self._dev_i32:
+            _, _, codes = self.dict_codes(key_col, device)
+            vals = self.device_i32(val_col, device)
+            keys_key = ("sivk", key_col, dkey)
+            with span("table.view_sort", rows=self.num_rows):
+                view = build_sorted_view(codes, vals, self._dev_i32.get(keys_key))
+            self._dev_i32[keys_key] = view[0]
+            self._dev_i32[cache_key] = view
+            count("view_device_builds")
+        return self._dev_i32[cache_key]
+
     def _sorted_view_host(self, key_col, val_col):
-        """(keys, values, n, order) numpy arrays of the sorted view, cached."""
+        """(keys, values, n, order) numpy arrays of the sorted view, cached:
+        copied back from a view built on a card, else sorted here."""
         key = ("sivh", key_col, val_col)
         if key not in self._i32:
-            from sequila_tpu_torch.native.loader import argsort64
-
-            codes, _, _ = self.dict_codes(key_col)
-            vals = self.column_as_i32(val_col)
-            with span("table.view_sort", rows=self.num_rows):
-                # the stable native radix over the order-preserving (code,
-                # value) composite is np.lexsort's order, about 8x faster
-                order = argsort64(
-                    (codes.astype(np.int64) << 32) | (vals.astype(np.int64) + 2**31)
-                )
-                if order is None:
-                    order = np.lexsort((vals, codes))
-                n = len(order)
-                pad = -(-max(n, 1) // 2048) * 2048
-                PADV = np.int32(2**31 - 1)
-                K = np.full(pad, PADV, np.int32)
-                V = np.full(pad, PADV, np.int32)
-                K[:n] = codes[order]
-                V[:n] = vals[order]
-                order = order.astype(np.int32)
-                for a in (K, V, order):
-                    a.flags.writeable = False
-                self._i32[key] = (K, V, n, order)
+            built = next(
+                (v for k, v in self._dev_i32.items()
+                 if isinstance(k, tuple) and k[:3] == ("sivd", key_col, val_col)),
+                None,
+            )
+            if built is not None:
+                K, V, n, order = built
+                with span("table.view_host", rows=n):
+                    K, V, order = (to_host(t) for t in (K, V, order))
+            else:
+                K, V, n, order = self._sort_view_host(key_col, val_col)
+            for a in (K, V, order):
+                a.flags.writeable = False
+            self._i32[key] = (K, V, n, order)
         return self._i32[key]
 
+    def _sort_view_host(self, key_col, val_col):
+        """(keys, values, n, order) of the view sorted on the host."""
+        from sequila_tpu_torch.native.loader import argsort64
+
+        codes, _, _ = self.dict_codes(key_col)
+        vals = self.column_as_i32(val_col)
+        with span("table.view_sort", rows=self.num_rows):
+            # the stable native radix over the order-preserving (code,
+            # value) composite is np.lexsort's order, about 8x faster
+            order = argsort64(
+                (codes.astype(np.int64) << 32) | (vals.astype(np.int64) + 2**31)
+            )
+            if order is None:
+                order = np.lexsort((vals, codes))
+            n = len(order)
+            K = np.full(_view_pad(n), VIEW_PAD, np.int32)
+            V = np.full(_view_pad(n), VIEW_PAD, np.int32)
+            K[:n] = codes[order]
+            V[:n] = vals[order]
+        return K, V, n, order.astype(np.int32)
+
     def sorted_interval_view(self, key_col, val_col, device):
-        """(device keys, device values, host keys, host values, n): the
-        (key code, i32 value) pairs sorted by (code, value), padded to a
-        2048 multiple with PAD sentinels (2^31 - 1) — int32 tensors on
-        ``device`` beside their numpy twins.  Cached — the engine's sorted
-        columnar view for the merge kernels."""
+        """(keys, values, n): the (key code, i32 value) pairs sorted by
+        (code, value), padded to a 2048 multiple with PAD sentinels
+        (2^31 - 1), as int32 tensors on ``device``.  Cached — the engine's
+        sorted columnar view for the merge kernels.  On a card the view is
+        sorted there; elsewhere it is sorted on the host and copied."""
+        if _on_card(device):
+            return self._device_view(key_col, val_col, device)[:3]
         cache_key = ("siv", key_col, val_col, _device_key(device))
         if cache_key not in self._dev_i32:
             K, V, n, _ = self._sorted_view_host(key_col, val_col)
-            self._dev_i32[cache_key] = (to_device(K, device), to_device(V, device), K, V, n)
+            self._dev_i32[cache_key] = (to_device(K, device), to_device(V, device), n)
         return self._dev_i32[cache_key]
+
+    def sorted_interval_host(self, key_col, val_col):
+        """(keys, values, n): ``sorted_interval_view`` as numpy arrays."""
+        return self._sorted_view_host(key_col, val_col)[:3]
 
     def sorted_interval_order(self, key_col, val_col) -> np.ndarray:
         """Permutation behind ``sorted_interval_view``: slot i of the sorted
@@ -371,14 +468,24 @@ class Table:
     def sorted_interval_inverse(self, key_col, val_col, device) -> torch.Tensor:
         """Inverse of ``sorted_interval_order`` as an int32 tensor on
         ``device``: original row i sits at slot ``inv[i]`` of the sorted
-        view.  Cached per view and device."""
+        view.  Cached per view and device; on a card scattered there from
+        the view's order."""
         cache_key = ("sivinv", key_col, val_col, _device_key(device))
         if cache_key not in self._dev_i32:
-            order = self.sorted_interval_order(key_col, val_col)
-            with span("table.inverse", rows=len(order)):
-                inv = np.empty(len(order), np.int32)
-                inv[order] = np.arange(len(order), dtype=np.int32)
-            self._dev_i32[cache_key] = to_device(inv, device)
+            if _on_card(device):
+                order = self._device_view(key_col, val_col, device)[3]
+                with span("table.inverse", rows=len(order)):
+                    inv = torch.empty_like(order)
+                    inv[order.long()] = torch.arange(
+                        len(order), dtype=torch.int32, device=order.device
+                    )
+            else:
+                order = self.sorted_interval_order(key_col, val_col)
+                with span("table.inverse", rows=len(order)):
+                    inv = np.empty(len(order), np.int32)
+                    inv[order] = np.arange(len(order), dtype=np.int32)
+                inv = to_device(inv, device)
+            self._dev_i32[cache_key] = inv
         return self._dev_i32[cache_key]
 
     # -- constructors -------------------------------------------------------
@@ -664,38 +771,56 @@ class Table:
         self._i32[name_or_idx] = out
         return out
 
-    def min_i32_diff(self, hi_col, lo_col) -> int:
+    def min_i32_diff(self, hi_col, lo_col, device=None) -> int:
         """min(i32[hi_col] - i32[lo_col]) over all rows, cached.
 
         The BITS-count eligibility checks (no inverted build intervals,
         no degenerate probes) reduce to this statistic shifted by the
         strict-op deltas; caching it makes the checks free on repeated
-        queries.  Returns 0 for an empty table (nothing is inverted)."""
+        queries.  Returns 0 for an empty table (nothing is inverted).  On
+        a card (``device``) it reduces the columns uploaded there."""
         key = ("mindiff", hi_col, lo_col)
         cached = self._i32.get(key)
         if cached is None:
-            hi = self.column_as_i32(hi_col)
-            lo = self.column_as_i32(lo_col)
-            with span("table.min_gap", rows=self.num_rows):
-                cached = int((hi.astype(np.int64) - lo).min()) if len(hi) else 0
+            if not self.num_rows:
+                cached = 0
+            elif _on_card(device):
+                hi = self.device_i32(hi_col, device)
+                lo = self.device_i32(lo_col, device)
+                with span("table.min_gap", rows=self.num_rows):
+                    cached = int(to_host((hi.to(torch.int64) - lo).min()))
+            else:
+                hi = self.column_as_i32(hi_col)
+                lo = self.column_as_i32(lo_col)
+                with span("table.min_gap", rows=self.num_rows):
+                    cached = int((hi.astype(np.int64) - lo).min())
             self._i32[key] = cached
         return cached
 
-    def per_key_minmax(self, key_col, val_col):
+    def per_key_minmax(self, key_col, val_col, device=None):
         """Per-dictionary-code (min, max) int64 arrays of an i32 value
         column, cached.
 
         The packed-uint32 count kernel compacts each key segment's value
         range into a shared 32-bit domain; the per-key extrema (merged
         with the other side's, shifted by the planner's ±lit deltas) size
-        the segment bases.  Computed once per (key, value) column pair
-        via the native radix argsort over (code << 32 | biased value)
-        composites — O(n) boundary reads after the sort."""
+        the segment bases.  On a card (``device``) they are each code's
+        first and last value in the sorted view built there, read back in
+        one copy; elsewhere the native radix argsort over (code << 32 |
+        biased value) composites — O(n) boundary reads after the sort."""
         key = ("pkmm", key_col, val_col)
         cached = self._i32.get(key)
         if cached is not None:
             return cached
         codes, values, _ = self.dict_codes(key_col)
+        if _on_card(device):
+            K, V, n, _ = self._device_view(key_col, val_col, device)
+            with span("table.key_minmax", rows=self.num_rows):
+                mins, maxs = to_host(view_key_extrema(K, V, n, len(values)))
+            mins.flags.writeable = False
+            maxs.flags.writeable = False
+            self._i32[key] = (mins, maxs)
+            return self._i32[key]
         vals = self.column_as_i32(val_col)
         with span("table.key_minmax", rows=self.num_rows):
             self._i32[key] = self._per_key_minmax(codes, len(values), vals)

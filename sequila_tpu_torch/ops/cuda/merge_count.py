@@ -673,7 +673,7 @@ def plan_verb_ranks(build, probe, cols_b, cols_q, *, want4: bool, device):
         return None
     if build.column(kb).null_count or probe.column(kq).null_count:
         return None
-    if probe.min_i32_diff(e_q, s_q) < 0 or build.min_i32_diff(e_b, s_b) < 0:
+    if probe.min_i32_diff(e_q, s_q, device) < 0 or build.min_i32_diff(e_b, s_b, device) < 0:
         return None
     _, bvals, _ = build.dict_codes(kb)
     _, qvals, _ = probe.dict_codes(kq)
@@ -681,10 +681,10 @@ def plan_verb_ranks(build, probe, cols_b, cols_q, *, want4: bool, device):
         return None
     remap_b, remap_q = merge_dictionaries(bvals, qvals)
     nkeys = int(max(remap_b.max(initial=-1), remap_q.max(initial=-1))) + 1
-    bs_mm = build.per_key_minmax(kb, s_b)
-    be_mm = build.per_key_minmax(kb, e_b)
-    qs_mm = probe.per_key_minmax(kq, s_q)
-    qe_mm = probe.per_key_minmax(kq, e_q)
+    bs_mm = build.per_key_minmax(kb, s_b, device)
+    be_mm = build.per_key_minmax(kb, e_b, device)
+    qs_mm = probe.per_key_minmax(kq, s_q, device)
+    qe_mm = probe.per_key_minmax(kq, e_q, device)
 
     def dom(b_mm, q_mm):
         return _joint_domain(
@@ -702,10 +702,10 @@ def plan_verb_ranks(build, probe, cols_b, cols_q, *, want4: bool, device):
     dev = torch.device(device)
     c_q = [c_tab_tensor(_c_tab(remap_q, *d, 0), dev) for d in doms]
     c_b = [c_tab_tensor(_c_tab(remap_b, *d, 0), dev) for d in doms]
-    pqe_k, pqe_v, _, _, _ = probe.sorted_interval_view(kq, e_q, dev)
-    pqs_k, pqs_v, _, _, _ = probe.sorted_interval_view(kq, s_q, dev)
-    bst_k, bst_v, _, _, _ = build.sorted_interval_view(kb, s_b, dev)
-    ben_k, ben_v, _, _, _ = build.sorted_interval_view(kb, e_b, dev)
+    pqe_k, pqe_v, _ = probe.sorted_interval_view(kq, e_q, dev)
+    pqs_k, pqs_v, _ = probe.sorted_interval_view(kq, s_q, dev)
+    bst_k, bst_v, _ = build.sorted_interval_view(kb, s_b, dev)
+    ben_k, ben_v, _ = build.sorted_interval_view(kb, e_b, dev)
     inv_qe = probe.sorted_interval_inverse(kq, e_q, dev)
     inv_qs = probe.sorted_interval_inverse(kq, s_q, dev)
     if not want4:
@@ -907,8 +907,8 @@ def plan_level_bounds(index, probe, r_key, qs_cd, qe_cd, bs_cd, be_cd,
     c_qe = c_tab_tensor(_c_tab(remap_q, *d2, d_qe), dev)
     c_qs = c_tab_tensor(_c_tab(remap_q, *d1, d_qs), dev)
 
-    pqe_k, pqe_v, _, _, n = probe.sorted_interval_view(r_key, qe_cd[0], dev)
-    pqs_k, pqs_v, _, _, _ = probe.sorted_interval_view(r_key, qs_cd[0], dev)
+    pqe_k, pqe_v, n = probe.sorted_interval_view(r_key, qe_cd[0], dev)
+    pqs_k, pqs_v, _ = probe.sorted_interval_view(r_key, qs_cd[0], dev)
     m_pad = pqe_k.numel()
     # the views' real rows lead and their PAD slots trail, so the orders
     # (real rows only) scatter the first n ranks and nothing else

@@ -50,8 +50,9 @@ def test_dict_codes(tables):
 def test_sorted_interval_view(tables, val_col):
     jt, tt = tables
     jk, jv, jkh, jvh, jn = jt.sorted_interval_view(0, val_col)
-    tk, tv, tkh, tvh, tn = tt.sorted_interval_view(0, val_col, "cpu")
-    assert tn == jn
+    tk, tv, tn = tt.sorted_interval_view(0, val_col, "cpu")
+    tkh, tvh, hn = tt.sorted_interval_host(0, val_col)
+    assert tn == hn == jn
     assert len(tkh) % 2048 == 0 and (tkh[tn:] == 2**31 - 1).all()
     np.testing.assert_array_equal(tkh, jkh)
     np.testing.assert_array_equal(tvh, jvh)
@@ -99,3 +100,101 @@ def test_device_remaps_is_off_the_slice(tables, rng):
     assert again[0] is got[0] and again[1] is got[1]
     # another right table never shares the cache entry
     assert device_remaps(tt, 0, tt, 0, "cpu")[1] is not got[1]
+
+
+# -- the sorted views built by a device sort (build_sorted_view) -------------
+
+I32_MIN, I32_MAX = -(2**31), 2**31 - 1
+
+
+def _view_arrow(rng, n, contigs, ties):
+    """(contig, s, e) rows: random or tied values, the ends of the int32
+    range among them, ends clipped below I32_MAX (the PAD sentinel)."""
+    s = rng.integers(-3, 3, n) if ties else rng.integers(I32_MIN, I32_MAX - 1, n)
+    s[: min(n, 3)] = [I32_MIN, I32_MAX - 1, -1][: min(n, 3)]
+    e = np.minimum(s + rng.integers(0, 3 if ties else 1000, n), I32_MAX - 1)
+    keys = rng.integers(0, contigs, n)
+    return pa.table({"contig": [f"chr{k}" for k in keys], "s": s, "e": e})
+
+
+@pytest.fixture
+def on_card(monkeypatch):
+    """Route the CPU through the card's view build (a device sort)."""
+    from sequila_tpu_torch.models import table
+
+    monkeypatch.setattr(table, "_on_card", lambda device: device is not None)
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["spread", "ties"])
+@pytest.mark.parametrize("contigs", [1, 300])
+@pytest.mark.parametrize("n", [0, 1, 2047, 2048, 2049])
+def test_device_view_build_is_the_host_build(rng, n, contigs, ties):
+    """build_sorted_view on CPU tensors and the extrema read from it against
+    the port's host build and the JAX package, bit for bit: keys, values,
+    n, the order, the per-key extrema and the min gap."""
+    from sequila_tpu_torch.models.table import build_sorted_view, view_key_extrema
+
+    t = _view_arrow(rng, n, contigs, ties)
+    jt, host = JaxTable(t), TorchTable(t)
+    codes = torch.tensor(host.dict_codes(0)[0])
+    k = len(host.dict_codes(0)[1])
+    keys = None
+    for col in (1, 2):
+        vals = torch.tensor(host.column_as_i32(col))
+        K, V, vn, order = build_sorted_view(codes, vals, keys)
+        keys = K
+        hk, hv, hn, horder = host._sorted_view_host(0, col)
+        _, _, jkh, jvh, jn = jt.sorted_interval_view(0, col)
+        assert vn == hn == jn == n
+        assert K.dtype == V.dtype == order.dtype == torch.int32
+        for got, want in ((K, hk), (V, hv), (K, jkh), (V, jvh), (order, horder),
+                          (order, jt.sorted_interval_order(0, col))):
+            np.testing.assert_array_equal(got.numpy(), want)
+        mins, maxs = view_key_extrema(K, V, vn, k).numpy()
+        for got, want in zip((mins, maxs), jt.per_key_minmax(0, col)):
+            np.testing.assert_array_equal(got, want)
+        for got, want in zip((mins, maxs), host.per_key_minmax(0, col)):
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [0, 1, 2047, 2048, 2049])
+def test_table_views_on_card_path(rng, on_card, n):
+    """A Table on the card's path (here CPU tensors): the views, extrema,
+    min gap, lazy host twins and order equal the host build's and the JAX
+    package's; one keys tensor for both views; the inverse order is a
+    scatter of the device order and inverts it."""
+    from sequila_tpu_torch.utils import metrics
+
+    t = _view_arrow(rng, n, 300, ties=True)
+    jt, tt, host = JaxTable(t), TorchTable(t), TorchTable(t)
+    with metrics.recording() as rec:
+        assert tt.min_i32_diff(2, 1, "cpu") == jt.min_i32_diff(2, 1)
+        for col in (1, 2):
+            for got, want in zip(tt.per_key_minmax(0, col, "cpu"), jt.per_key_minmax(0, col)):
+                np.testing.assert_array_equal(got, want)
+                assert not got.flags.writeable
+        # the host twins wait for a reader
+        assert not [k for k in tt._i32 if isinstance(k, tuple) and k[0] == "sivh"]
+        views = [tt.sorted_interval_view(0, col, "cpu") for col in (1, 2)]
+    assert rec.counts()["view_device_builds"] == 2
+    assert views[0][0] is views[1][0]  # G2: one keys tensor a key column
+    for col, (K, V, vn) in zip((1, 2), views):
+        jk, jv, _, _, jn = jt.sorted_interval_view(0, col)
+        assert vn == jn
+        np.testing.assert_array_equal(K.numpy(), np.asarray(jk))
+        np.testing.assert_array_equal(V.numpy(), np.asarray(jv))
+        for got, want in zip(tt.sorted_interval_host(0, col), host.sorted_interval_host(0, col)):
+            np.testing.assert_array_equal(got, want)
+        order = tt.sorted_interval_order(0, col)
+        np.testing.assert_array_equal(order, host.sorted_interval_order(0, col))
+        inv = tt.sorted_interval_inverse(0, col, "cpu")
+        assert inv.dtype == torch.int32 and inv.shape == (n,)
+        np.testing.assert_array_equal(inv.numpy()[order], np.arange(n))
+        np.testing.assert_array_equal(inv.numpy(),
+                                      host.sorted_interval_inverse(0, col, "cpu").numpy())
+        assert tt.sorted_interval_inverse(0, col, "cpu") is inv
+    with metrics.recording() as again:
+        for col in (1, 2):
+            tt.sorted_interval_view(0, col, "cpu")
+            tt.per_key_minmax(0, col, "cpu")
+    assert again.counts()["view_device_builds"] == 0

@@ -48,7 +48,7 @@ def _plans(b, a, want4, device="cpu"):
 def _prefix(t: pa.Table, col: str) -> np.ndarray:
     """int64 exclusive prefix sum of the (contig, col)-sorted view's values
     (PAD tail included, as the dataframe caches it)."""
-    _, v, _, _, _ = TorchTable(t).sorted_interval_view(0, t.schema.get_field_index(col), "cpu")
+    _, v, _ = TorchTable(t).sorted_interval_view(0, t.schema.get_field_index(col), "cpu")
     return np.concatenate([[0], np.cumsum(v.numpy().astype(np.int64))])
 
 
