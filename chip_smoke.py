@@ -73,6 +73,14 @@ Phases, each of which exits non-zero when it fails:
    build's (the native radix argsort and its gathers; the per-key
    extrema's second sort) and timed beside it: CUDA events on the card,
    the host clock on the host;
+4h. the contig column of a genome table of 7,684,066 rows (the fresh
+   count's) and a window of it at an offset coded on the card (ops/cuda/string_keys.py::
+   code_strings: the Arrow buffers uploaded as they are, string_keys,
+   one sort, verify_groups, the K representatives sorted on the host),
+   codes and values equal to the host encoder's (Table.dict_codes); the
+   two kernels against their plain versions and timed beside their
+   bounds, the grouping timed, and the whole coding on the card (uploads
+   included) against the host encoder, both by the host clock;
 5a. the materializing ``SELECT *`` at the 15M-row pairing
    (``gen_chain_table(20_000, 13)`` x ``gen_chain_table(300_000, 14)``):
    the host route for reference, then the device route on the merge
@@ -227,6 +235,8 @@ WARM_QUERIES = 10
 LEVEL_WARM_QUERIES = 2
 TIMED_LAUNCHES = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+# the fresh count's table (the databio chainVicPac2 rows): phase 4h's shape
+FRESH_ROWS = 7_684_066
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 ZERO_LENGTH_SHARE = 0.01
 HALF_OPEN_QUERY = (
@@ -692,8 +702,10 @@ def time_kernel(torch, name, plain, kern, library, nbytes_, ops, shape, card) ->
 
 
 # the hand kernels' launch counters (utils/metrics: ``launch.<kernel>``);
-# pair_merge is B2's and B3's one launch
-LAUNCHES = ("merge_path", "pack_view", "unpermute_ranks", "unpermute_counts", "pair_merge")
+# pair_merge is B2's and B3's one launch; string_keys and verify_groups
+# code a fresh table's string keys on the card
+LAUNCHES = ("merge_path", "pack_view", "unpermute_ranks", "unpermute_counts", "pair_merge",
+            "string_keys", "verify_groups")
 
 
 def reset_launches():
@@ -776,7 +788,7 @@ def phase_main_path(torch, card):
     torch.cuda.synchronize()
     merge_launches = launches()
     print(f"main path counts correct on the merge route; kernel launches: {merge_launches}")
-    for kname in ("pack_view", "merge_path"):
+    for kname in ("pack_view", "merge_path", "string_keys", "verify_groups"):
         if merge_launches[kname] <= 0:
             fail(f"kernel {kname} was not launched by the main path")
     # a warm count(*): both BITS passes in one segmented B1 launch
@@ -834,6 +846,72 @@ def phase_view_build(torch, t2: dict, card) -> dict:
           f"{out['device_shared_keys_ms']:.3f} ms), extrema {out['device_extrema_ms']:.4f} ms; "
           f"host {host_ms[0]:.1f} / {host_ms[1]:.1f} ms, its extrema {minmax_ms[0]:.1f} / "
           f"{minmax_ms[1]:.1f} ms; equal [{card}]", flush=True)
+    return out
+
+
+def phase_dict_build(torch, card, rows: int = FRESH_ROWS) -> dict:
+    """4h: the contig column of a genome table of ``rows`` rows (the fresh
+    count's shape) and a window of it coded on the card, equal to the host
+    encoder, the kernels timed beside their plain versions and bounds, the
+    whole coding beside the host encoder."""
+    print("== phase 4h: a key column coded on the card beside the host encoder", flush=True)
+    import pyarrow as pa
+
+    from sequila_tpu_torch import bench_data as bd
+    from sequila_tpu_torch.models.table import Table
+    from sequila_tpu_torch.ops.cuda import string_keys as sk
+
+    dev = torch.device("cuda")
+    arr = pa.array(bd.gen_genome_table(rows, 22)["contig"])
+    if isinstance(arr, pa.ChunkedArray):  # pyarrow may chunk a large NumPy column
+        arr = arr.combine_chunks()
+    n = len(arr)
+    for label, a in (("whole", arr), ("window", arr.slice(n // 7, n - n // 3))):
+        codes, values, _ = Table(pa.table({"k": a})).dict_codes(0)
+        got_values, got = sk.code_strings(a, dev)
+        if list(got_values) != list(values) or not np.array_equal(got.cpu().numpy(), codes):
+            fail(f"phase 4h: the card's coding of the {label} column differs from the host's")
+    offsets, data, base = sk.arrow_string_buffers(arr)
+    d_off, d_data = torch.tensor(offsets, device=dev), torch.tensor(data, device=dev)
+    keys = sk.string_keys(d_off, d_data, base)
+    if not torch.equal(keys, sk.string_keys_plain(d_off, d_data, base)):
+        fail("phase 4h: string_keys differs from its plain version")
+    group, rep, k = sk.group_keys(keys)
+    if int(sk.verify_groups(d_off, d_data, base, group, rep)[0]) != 0:
+        fail("phase 4h: verify_groups flagged the genome contigs' exact grouping")
+    one = torch.zeros_like(group)  # every row in one group: a collision
+    for flagged in (sk.verify_groups(d_off, d_data, base, one, rep),
+                    sk.verify_groups_plain(d_off, d_data, base, one, rep)):
+        if int(flagged[0]) != 1:
+            fail("phase 4h: a grouping of different strings was not flagged")
+    shape = f"{n} rows, {len(data)} bytes, {int(k)} keys"
+    out = {
+        "string_keys": time_kernel(
+            torch, "string_keys", lambda: sk.string_keys_plain(d_off, d_data, base),
+            lambda: sk.string_keys(d_off, d_data, base), None,
+            nbytes(d_off, d_data, keys), 0, shape, card),
+        "verify_groups": time_kernel(
+            torch, "verify_groups",
+            lambda: sk.verify_groups_plain(d_off, d_data, base, group, rep),
+            lambda: sk.verify_groups(d_off, d_data, base, group, rep), None,
+            nbytes(d_off, d_data, group), 0, shape, card),
+        "group_keys_ms": time_events(torch, lambda: sk.group_keys(keys), TIMED_LAUNCHES),
+    }
+    card_ms, host_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Table(pa.table({"k": arr})).dict_values(0, dev)
+        torch.cuda.synchronize()
+        card_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        Table(pa.table({"k": arr})).dict_codes(0)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    out.update(dict_codes_card_ms=card_ms, dict_codes_host_ms=host_ms)
+    print(f"key coding of {shape}: grouping {out['group_keys_ms']:.4f} ms; whole on the card "
+          f"{' / '.join(f'{t:.2f}' for t in card_ms)} ms, host encoder "
+          f"{' / '.join(f'{t:.1f}' for t in host_ms)} ms; equal [{card}]", flush=True)
+    print(json.dumps({"dict_build": out}), flush=True)
     return out
 
 
@@ -2706,6 +2784,7 @@ def main(only_multiprocess: bool = False, only_checks: bool = False) -> None:
     err = phase_kernels(torch, dev)
     sessions, merge_launches = phase_main_path(torch, card)
     phase_view_build(torch, sessions[1][4], card)
+    phase_dict_build(torch, card)
     stream_launches = phase_backends(torch, sessions)
     phase_level(torch, sessions, card)
     resident_launches, resident_cols = phase_resident(torch, dev)

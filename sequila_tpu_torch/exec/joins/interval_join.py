@@ -560,8 +560,8 @@ class IntervalJoinExec(ExecPlan):
         if left.min_i32_diff(be_cd[0], bs_cd[0], self.device) + be_cd[1] - bs_cd[1] < 0:
             return None
 
-        lcodes, lvals, _ = left.dict_codes(l_on.index)
-        rcodes, rvals, _ = right.dict_codes(r_on.index)
+        lvals = left.dict_values(l_on.index, self.device)
+        rvals = right.dict_values(r_on.index, self.device)
         if len(lvals) and len(rvals) and type(lvals[0]) is not type(rvals[0]):
             # merge_dictionaries would str-coerce, breaking the monotone
             # remap the cached sorted views depend on
@@ -763,8 +763,8 @@ class IntervalJoinExec(ExecPlan):
         else:
             if left.column(l_on.index).null_count or right.column(r_on.index).null_count:
                 return None
-            _, _, lk = left.dict_codes(l_on.index, dev)
-            _, _, rk = right.dict_codes(r_on.index, dev)
+            lk = left.device_codes(l_on.index, dev)
+            rk = right.device_codes(r_on.index, dev)
             remap_l, remap_r = device_remaps(left, l_on.index, right, r_on.index, dev)
         with ctx.timer(self.op_id(), "join_time"):
             total, n_deg = to_host(counts_bits_fused(lk, *bounds[:2], rk, *bounds[2:],
@@ -1290,8 +1290,8 @@ class IntervalJoinExec(ExecPlan):
         qe_cd = self._bound_col_delta(self.intervals.right_interval.end, right)
         if None in (bs_cd, be_cd, qs_cd, qe_cd):
             return None
-        _, lvals, _ = left.dict_codes(l_on.index)
-        _, rvals, _ = right.dict_codes(r_on.index)
+        lvals = left.dict_values(l_on.index, self.device)
+        rvals = right.dict_values(r_on.index, self.device)
         if len(lvals) and len(rvals) and type(lvals[0]) is not type(rvals[0]):
             return None  # str-coercing merge would break monotone remaps
 

@@ -359,27 +359,88 @@ class Table:
         no device is named.  Codes are ORDER-PRESERVING (dictionary sorted,
         codes = value ranks): merging two sorted dictionaries then yields
         monotone remaps, so cached (code, value)-sorted views stay sorted
-        in the joint key space — the basis of the sort-free count path."""
-        key = name_or_idx
-        if key not in self._codes:
-            with span("table.dict_codes", rows=self.num_rows):
-                col = self._t.column(name_or_idx).combine_chunks()
-                enc = col.dictionary_encode()
-                codes = enc.indices.to_numpy(zero_copy_only=False).astype(np.int32)
-                values = enc.dictionary.to_numpy(zero_copy_only=False)
-                order = np.argsort(values, kind="stable")
-                rank = np.empty_like(order)
-                rank[order] = np.arange(len(order))
-                codes = rank.astype(np.int32)[codes]
-                values = values[order]
-                self._codes[key] = (codes, values)
-        codes, values = self._codes[key]
+        in the joint key space — the basis of the sort-free count path.
+        Readers that need only the values or the device codes take
+        ``dict_values`` / ``device_codes``: the host codes of a dictionary
+        built on a card are its device codes copied back, once."""
+        entry = self._dictionary(name_or_idx, device)
+        codes = self._host_codes(name_or_idx, entry)
         if device is None:
-            return codes, values, None
-        dkey = ("codes", key, _device_key(device))
+            return codes, entry[1], None
+        return codes, entry[1], self.device_codes(name_or_idx, device)
+
+    def dict_values(self, name_or_idx, device=None) -> np.ndarray:
+        """The sorted dictionary values of ``dict_codes``; asked for a card,
+        the dictionary is built there (``_dictionary``)."""
+        return self._dictionary(name_or_idx, device)[1]
+
+    def device_codes(self, name_or_idx, device) -> torch.Tensor:
+        """The int32 codes of ``dict_codes`` on ``device``, cached: built
+        there on a card, else the host codes uploaded."""
+        entry = self._dictionary(name_or_idx, device)
+        dkey = ("codes", name_or_idx, _device_key(device))
         if dkey not in self._dev_i32:
-            self._dev_i32[dkey] = to_device(codes, device)
-        return codes, values, self._dev_i32[dkey]
+            self._dev_i32[dkey] = to_device(self._host_codes(name_or_idx, entry), device)
+        return self._dev_i32[dkey]
+
+    def _dictionary(self, name_or_idx, device=None) -> list:
+        """[host codes or None, sorted values, device key or None], cached.
+
+        Asked for a card, a null-free ``string`` / ``large_string`` column
+        is coded there (``ops/cuda/string_keys.code_strings``, span
+        ``table.dict_device``, counter ``dict_device_builds``): its device
+        codes are cached under the device key and its host codes left
+        unmade.  Every other column, and one with two strings of one key
+        (``dict_host_fallbacks``), is coded here by Arrow's encoder."""
+        key = name_or_idx
+        entry = self._codes.get(key)
+        if entry is None:
+            if _on_card(device):
+                entry = self._dictionary_on_card(name_or_idx, device)
+            if entry is None:
+                with span("table.dict_codes", rows=self.num_rows):
+                    col = self._t.column(name_or_idx).combine_chunks()
+                    enc = col.dictionary_encode()
+                    codes = enc.indices.to_numpy(zero_copy_only=False).astype(np.int32)
+                    values = enc.dictionary.to_numpy(zero_copy_only=False)
+                    order = np.argsort(values, kind="stable")
+                    rank = np.empty_like(order)
+                    rank[order] = np.arange(len(order))
+                    codes = rank.astype(np.int32)[codes]
+                    values = values[order]
+                entry = [codes, values, None]
+            self._codes[key] = entry
+        return entry
+
+    def _dictionary_on_card(self, name_or_idx, device) -> list | None:
+        from sequila_tpu_torch.ops.cuda.string_keys import code_strings
+
+        col = self._t.column(name_or_idx)
+        if col.null_count or not (
+            pa.types.is_string(col.type) or pa.types.is_large_string(col.type)
+        ):
+            return None
+        # the one chunk as it is (combine_chunks copies a sliced chunk)
+        arr = col.chunk(0) if col.num_chunks == 1 else col.combine_chunks()
+        with span("table.dict_device", rows=self.num_rows):
+            built = code_strings(arr, device)
+        if built is None:
+            count("dict_host_fallbacks")
+            return None
+        count("dict_device_builds")
+        values, codes = built
+        dkey = _device_key(device)
+        self._dev_i32[("codes", name_or_idx, dkey)] = codes
+        return [None, values, dkey]
+
+    def _host_codes(self, name_or_idx, entry: list) -> np.ndarray:
+        """The host codes of a ``_dictionary`` entry: for a card's build,
+        its device codes copied back once (span ``table.dict_host``)."""
+        if entry[0] is None:
+            codes = self._dev_i32[("codes", name_or_idx, entry[2])]
+            with span("table.dict_host", rows=self.num_rows):
+                entry[0] = to_host(codes)
+        return entry[0]
 
     def _device_view(self, key_col, val_col, device):
         """(keys, values, n, order) int32 tensors of the sorted view, built
@@ -389,7 +450,7 @@ class Table:
         dkey = _device_key(device)
         cache_key = ("sivd", key_col, val_col, dkey)
         if cache_key not in self._dev_i32:
-            _, _, codes = self.dict_codes(key_col, device)
+            codes = self.device_codes(key_col, device)
             vals = self.device_i32(val_col, device)
             keys_key = ("sivk", key_col, dkey)
             with span("table.view_sort", rows=self.num_rows):
@@ -812,15 +873,16 @@ class Table:
         cached = self._i32.get(key)
         if cached is not None:
             return cached
-        codes, values, _ = self.dict_codes(key_col)
         if _on_card(device):
+            k = len(self.dict_values(key_col, device))
             K, V, n, _ = self._device_view(key_col, val_col, device)
             with span("table.key_minmax", rows=self.num_rows):
-                mins, maxs = to_host(view_key_extrema(K, V, n, len(values)))
+                mins, maxs = to_host(view_key_extrema(K, V, n, k))
             mins.flags.writeable = False
             maxs.flags.writeable = False
             self._i32[key] = (mins, maxs)
             return self._i32[key]
+        codes, values, _ = self.dict_codes(key_col)
         vals = self.column_as_i32(val_col)
         with span("table.key_minmax", rows=self.num_rows):
             self._i32[key] = self._per_key_minmax(codes, len(values), vals)
@@ -973,9 +1035,9 @@ def device_remaps(left: "Table", l_col, right: "Table", r_col, device):
     entry = left._codes.get(key)
     if entry is not None and entry[0]() is right:
         return entry[1], entry[2]
-    _, lvals, _ = left.dict_codes(l_col)
-    _, rvals, _ = right.dict_codes(r_col)
-    rl, rr = merge_dictionaries(lvals, rvals)
+    rl, rr = merge_dictionaries(
+        left.dict_values(l_col, device), right.dict_values(r_col, device)
+    )
     dl, dr = to_device(rl, device), to_device(rr, device)
     left._codes[key] = (weakref.ref(right), dl, dr)
     return dl, dr

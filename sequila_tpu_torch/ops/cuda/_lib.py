@@ -114,6 +114,10 @@ def lib() -> ctypes.CDLL:
             cdll.seq_unpermute_counts.argtypes = [vp, vp, vp, vp, i64, vp]
             cdll.seq_pair_merge.restype = ctypes.c_int
             cdll.seq_pair_merge.argtypes = [vp, vp, i32, i64, vp, vp]
+            cdll.seq_string_keys.restype = ctypes.c_int
+            cdll.seq_string_keys.argtypes = [vp, i32, vp, i64, i64, vp, vp]
+            cdll.seq_verify_groups.restype = ctypes.c_int
+            cdll.seq_verify_groups.argtypes = [vp, i32, vp, i64, vp, vp, i64, vp, vp]
             _LIB = cdll
         return _LIB
 

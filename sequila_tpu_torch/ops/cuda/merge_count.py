@@ -675,8 +675,8 @@ def plan_verb_ranks(build, probe, cols_b, cols_q, *, want4: bool, device):
         return None
     if probe.min_i32_diff(e_q, s_q, device) < 0 or build.min_i32_diff(e_b, s_b, device) < 0:
         return None
-    _, bvals, _ = build.dict_codes(kb)
-    _, qvals, _ = probe.dict_codes(kq)
+    bvals = build.dict_values(kb, device)
+    qvals = probe.dict_values(kq, device)
     if len(bvals) and len(qvals) and type(bvals[0]) is not type(qvals[0]):
         return None
     remap_b, remap_q = merge_dictionaries(bvals, qvals)
