@@ -69,10 +69,9 @@ Phases, each of which exits non-zero when it fails:
 4g. one sorted view of the genome probe table (7,684,066 rows) built on
    the card (models/table.py::build_sorted_view: one stable torch.sort of
    the (code, value) composite, the keys, values and order split from it)
-   and its per-key extrema (view_key_extrema), both equal to the host
-   build's (the native radix argsort and its gathers; the per-key
-   extrema's second sort) and timed beside it: CUDA events on the card,
-   the host clock on the host;
+   and its per-key extrema (view_key_extrema), the order equal to
+   np.lexsort's and the keys and values to its gathers, all four equal
+   to the same build on CPU tensors, and timed (CUDA events);
 4h. the contig column of a genome table of 7,684,066 rows (the fresh
    count's) and a window of it at an offset coded on the card (ops/cuda/string_keys.py::
    code_strings: the Arrow buffers uploaded as they are, string_keys,
@@ -805,9 +804,11 @@ def phase_main_path(torch, card):
 
 
 def phase_view_build(torch, t2: dict, card) -> dict:
-    """4g: a view of ``t2`` by (contig, pos_start) built on the card and on
-    the host, equal, with the per-key extrema, and timed."""
-    print("== phase 4g: a sorted view built on the card beside the host build", flush=True)
+    """4g: a view of ``t2`` by (contig, pos_start) built on the card, equal
+    to np.lexsort's order and to the same build on CPU tensors, with the
+    per-key extrema, and timed."""
+    print("== phase 4g: a sorted view built on the card beside np.lexsort and the CPU",
+          flush=True)
     import pyarrow as pa
 
     from sequila_tpu_torch.models.table import Table, build_sorted_view, view_key_extrema
@@ -815,37 +816,34 @@ def phase_view_build(torch, t2: dict, card) -> dict:
     host = Table(pa.table(t2))
     codes, values, _ = host.dict_codes(0)
     vals = host.column_as_i32(1)
-    host_ms, minmax_ms = [], []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        hk, hv, hn, horder = host._sort_view_host(0, 1)
-        t1 = time.perf_counter()
-        mins, maxs = Table._per_key_minmax(codes, len(values), vals)
-        host_ms.append((t1 - t0) * 1e3)
-        minmax_ms.append((time.perf_counter() - t1) * 1e3)
+    k = len(values)
+    cpu_view = build_sorted_view(torch.tensor(codes), torch.tensor(vals))
+    cpu_ext = view_key_extrema(*cpu_view[:3], k)
+    want_order = np.lexsort((vals, codes))
     dev = torch.device("cuda")
     d_codes, d_vals = torch.tensor(codes, device=dev), torch.tensor(vals, device=dev)
     keys, v, n, order = build_sorted_view(d_codes, d_vals)
-    ext = view_key_extrema(keys, v, n, len(values)).cpu().numpy()
-    for name, got, want in (("keys", keys, hk), ("values", v, hv), ("order", order, horder)):
-        if not np.array_equal(got.cpu().numpy(), want):
-            fail(f"phase 4g: the card's view {name} differ from the host build's")
-    if n != hn or not (np.array_equal(ext[0], mins) and np.array_equal(ext[1], maxs)):
-        fail("phase 4g: the card's per-key extrema differ from the host's")
+    ext = view_key_extrema(keys, v, n, k)
+    if n != len(want_order) or not np.array_equal(order.cpu().numpy(), want_order):
+        fail("phase 4g: the card's view order differs from np.lexsort's")
+    if not (np.array_equal(keys[:n].cpu().numpy(), codes[want_order])
+            and np.array_equal(v[:n].cpu().numpy(), vals[want_order])):
+        fail("phase 4g: the card's view keys or values differ from np.lexsort's gathers")
+    for name, got, want in (("keys", keys, cpu_view[0]), ("values", v, cpu_view[1]),
+                            ("order", order, cpu_view[3]), ("per-key extrema", ext, cpu_ext)):
+        if not torch.equal(got.cpu(), want):
+            fail(f"phase 4g: the card's view {name} differ from the build on the CPU")
     out = {
         "rows": n,
         "device_ms": time_events(torch, lambda: build_sorted_view(d_codes, d_vals), 20),
         "device_shared_keys_ms": time_events(
             torch, lambda: build_sorted_view(d_codes, d_vals, keys), 20),
         "device_extrema_ms": time_events(
-            torch, lambda: view_key_extrema(keys, v, n, len(values)), 20),
-        "host_ms": host_ms,
-        "host_extrema_ms": minmax_ms,
+            torch, lambda: view_key_extrema(keys, v, n, k), 20),
     }
     print(f"view build of {n} rows: card {out['device_ms']:.3f} ms (keys shared "
           f"{out['device_shared_keys_ms']:.3f} ms), extrema {out['device_extrema_ms']:.4f} ms; "
-          f"host {host_ms[0]:.1f} / {host_ms[1]:.1f} ms, its extrema {minmax_ms[0]:.1f} / "
-          f"{minmax_ms[1]:.1f} ms; equal [{card}]", flush=True)
+          f"equal to np.lexsort and the CPU build [{card}]", flush=True)
     return out
 
 
@@ -1323,8 +1321,8 @@ def probe_mode(torch, join, left, right, want_counts, card, err) -> dict:
     packed = (mc.pack_view(*plan.pqe, mc.BUILD_PAD), mc.pack_view(*plan.pqs, mc.BUILD_PAD))
     dev = packed[0].device
     r_on, qs_cd, qe_cd = inputs[1], inputs[4], inputs[5]
-    orders = [torch.from_numpy(right.sorted_interval_order(r_on.index, c).astype(np.int64))
-              .to(dev) for c in (qe_cd[0], qs_cd[0])]
+    orders = [right.sorted_interval_order(r_on.index, c, join.device).long()
+              for c in (qe_cd[0], qs_cd[0])]
     invs = (plan.inv_qe, plan.inv_qs)
 
     # the yardsticks: torch.searchsorted on the same packed values widened
@@ -2071,8 +2069,7 @@ def verb_mode(torch, a, b, want_counts, card, err) -> dict:
     packed = [mc.pack_view(*p, mc.BUILD_PAD) for p in plan.packs]
     dev = packed[0].device
     want = mc.merge_verb_rank4_plain(plan)
-    ord_qe, ord_qs = (torch.from_numpy(a.sorted_interval_order(0, c).astype(np.int64)).to(dev)
-                      for c in (2, 1))
+    ord_qe, ord_qs = (a.sorted_interval_order(0, c, "cuda").long() for c in (2, 1))
     orders = (ord_qe, ord_qs, ord_qe, ord_qs)
     verb_split(torch, plan, packed, orders, want, card)
 

@@ -316,7 +316,9 @@ def _merge_verb_plan(entry: dict, b: Table, a: Table, cols_b, cols_a,
 
 
 def _merge_backend() -> bool:
-    return os.environ.get("SEQUILA_COUNT_BACKEND", "merge") == "merge"
+    from sequila_tpu_torch.exec.joins.interval_join import count_backend
+
+    return count_backend() == "merge"
 
 
 def count_overlaps(a: Table, b: Table, cols: tuple = DEFAULT_COLS, cols_b=None,

@@ -112,6 +112,12 @@ def _host_threshold() -> int:
     return int(_os.environ.get("SEQUILA_HOST_THRESHOLD", 65536))
 
 
+def count_backend() -> str:
+    """The count backend SEQUILA_COUNT_BACKEND asks for: ``merge`` (the
+    default), ``stream`` or ``cosort``."""
+    return _os.environ.get("SEQUILA_COUNT_BACKEND", "merge")
+
+
 def nearest_route_host(n: int, m: int) -> bool:
     """Host-vs-device routing for NEAREST (one output row per probe row),
     the JAX package's rule kept for parity: the host whenever the native
@@ -487,19 +493,12 @@ class IntervalJoinExec(ExecPlan):
         Single plain-Column keys only; the per-table encodings are cached
         on the Tables, so repeated queries pay one tiny dictionary merge
         plus an O(n) remap instead of re-encoding the columns."""
-        from sequila_tpu_torch.planner.expr import Column
-
-        if len(self.on) != 1:
-            return None
-        l_on, r_on = self.on[0]
-        if not (isinstance(l_on, Column) and isinstance(r_on, Column)):
-            return None
-        if (
-            left.column(l_on.index).null_count
-            or right.column(r_on.index).null_count
-        ):
-            return None  # null keys need the sentinel-code path
         from sequila_tpu_torch.models.table import merge_dictionaries
+
+        keys = self._view_keys(left, right)
+        if keys is None:
+            return None
+        l_on, r_on = keys
 
         def build():
             lcodes, lvals, _ = left.dict_codes(l_on.index)
@@ -531,43 +530,64 @@ class IntervalJoinExec(ExecPlan):
             return expr.left.index, (-d if expr.op == "-" else d)
         return None
 
-    def _sorted_count_inputs(self, left: Table, right: Table):
-        """Shared preconditions + cached inputs for the sorted-view count
-        backend; None when the plan shape doesn't qualify for BITS over
-        cached sorted views."""
-        from sequila_tpu_torch.models.table import merge_dictionaries
+    def _view_keys(self, left: Table, right: Table):
+        """(l_on, r_on): the one key pair the cached table views and
+        dictionaries are keyed on, plain Columns with null-free columns,
+        or None (null keys need the sentinel-code path)."""
         from sequila_tpu_torch.planner.expr import Column
 
         if len(self.on) != 1:
-            return None
-        if left.num_rows == 0 or right.num_rows == 0:
             return None
         l_on, r_on = self.on[0]
         if not (isinstance(l_on, Column) and isinstance(r_on, Column)):
             return None
         if left.column(l_on.index).null_count or right.column(r_on.index).null_count:
             return None
-        bs_cd = self._bound_col_delta(self.intervals.left_interval.start, left)
-        be_cd = self._bound_col_delta(self.intervals.left_interval.end, left)
-        qs_cd = self._bound_col_delta(self.intervals.right_interval.start, right)
-        qe_cd = self._bound_col_delta(self.intervals.right_interval.end, right)
-        if None in (bs_cd, be_cd, qs_cd, qe_cd):
+        return l_on, r_on
+
+    def _bound_deltas(self, left: Table, right: Table):
+        """(column, delta) of the bounds bs, be (``left``) and qs, qe
+        (``right``), each None where the bound is not ``col ± literal``."""
+        li, ri = self.intervals.left_interval, self.intervals.right_interval
+        return (
+            self._bound_col_delta(li.start, left),
+            self._bound_col_delta(li.end, left),
+            self._bound_col_delta(ri.start, right),
+            self._bound_col_delta(ri.end, right),
+        )
+
+    def _view_extrema(self, left, right, l_on, r_on, cds):
+        """The four per-key extrema of the bounds ``cds`` (bs, be, qs, qe)
+        on ``self.device``."""
+        from sequila_tpu_torch.models.table import view_extrema
+
+        return view_extrema(
+            left, l_on.index, right, r_on.index, [c for c, _ in cds], self.device
+        )
+
+    def _sorted_count_inputs(self, left: Table, right: Table):
+        """Shared preconditions + cached inputs for the sorted-view count
+        backend; None when the plan shape doesn't qualify for BITS over
+        cached sorted views."""
+        from sequila_tpu_torch.models.table import view_remaps
+
+        keys = self._view_keys(left, right)
+        if keys is None or left.num_rows == 0 or right.num_rows == 0:
             return None
+        cds = self._bound_deltas(left, right)
+        if None in cds:
+            return None
+        bs_cd, be_cd, qs_cd, qe_cd = cds
         # degenerate probes (qs_adj > qe_adj) and inverted build intervals
-        # break BITS: host min-gap checks (cached table statistics)
+        # break BITS: min-gap checks (cached table statistics)
         if right.min_i32_diff(qe_cd[0], qs_cd[0], self.device) + qe_cd[1] - qs_cd[1] < 0:
             return None
         if left.min_i32_diff(be_cd[0], bs_cd[0], self.device) + be_cd[1] - bs_cd[1] < 0:
             return None
-
-        lvals = left.dict_values(l_on.index, self.device)
-        rvals = right.dict_values(r_on.index, self.device)
-        if len(lvals) and len(rvals) and type(lvals[0]) is not type(rvals[0]):
-            # merge_dictionaries would str-coerce, breaking the monotone
-            # remap the cached sorted views depend on
+        remaps = view_remaps(left, keys[0].index, right, keys[1].index, self.device)
+        if remaps is None:
             return None
-        remap_b, remap_q = merge_dictionaries(lvals, rvals)
-        return l_on, r_on, bs_cd, be_cd, qs_cd, qe_cd, remap_b, remap_q
+        return (*keys, *cds, *remaps)
 
     def _merge_sorted_count(self, ctx, left: Table, right: Table):
         """Packed-u32 merge count over cached sorted views on
@@ -611,14 +631,9 @@ class IntervalJoinExec(ExecPlan):
         packing is infeasible (span > 32 bits)."""
         from sequila_tpu_torch.ops.cuda import merge_count as mc
 
-        views = (
-            left.per_key_minmax(l_on.index, bs_cd[0], self.device),
-            left.per_key_minmax(l_on.index, be_cd[0], self.device),
-            right.per_key_minmax(r_on.index, qs_cd[0], self.device),
-            right.per_key_minmax(r_on.index, qe_cd[0], self.device),
-        )
-        deltas = (bs_cd[1], be_cd[1], qs_cd[1], qe_cd[1])
-        ctabs = mc.plan_packing(remap_b, remap_q, views, deltas)
+        cds = (bs_cd, be_cd, qs_cd, qe_cd)
+        views = self._view_extrema(left, right, l_on, r_on, cds)
+        ctabs = mc.plan_packing(remap_b, remap_q, views, [d for _, d in cds])
         if ctabs is None:
             return None
         c_be, c_qs, c_bs, c_qe = (mc.c_tab_tensor(c, self.device) for c in ctabs)
@@ -684,10 +699,10 @@ class IntervalJoinExec(ExecPlan):
         if qu_k.shape[0] != ql_k.shape[0]:
             return None
         # their host twins, for the block windows
-        bu_kh, bu_vh, _ = left.sorted_interval_host(l_on.index, bs_cd[0])
-        bl_kh, bl_vh, _ = left.sorted_interval_host(l_on.index, be_cd[0])
-        qu_kh, qu_vh, _ = right.sorted_interval_host(r_on.index, qe_cd[0])
-        ql_kh, ql_vh, _ = right.sorted_interval_host(r_on.index, qs_cd[0])
+        bu_kh, bu_vh, _ = left.sorted_interval_host(l_on.index, bs_cd[0], dev)
+        bl_kh, bl_vh, _ = left.sorted_interval_host(l_on.index, be_cd[0], dev)
+        qu_kh, qu_vh, _ = right.sorted_interval_host(r_on.index, qe_cd[0], dev)
+        ql_kh, ql_vh, _ = right.sorted_interval_host(r_on.index, qs_cd[0], dev)
 
         PADH = np.int32(2**31 - 1)
 
@@ -713,56 +728,37 @@ class IntervalJoinExec(ExecPlan):
         ]
         return (bu_k, bu_v, bl_k, bl_v, qu_k, qu_v, ql_k, ql_v, *on_dev)
 
-    def _device_bound(self, expr, table: Table):
-        """Interval-bound expression over device-resident columns, or None.
-
-        Covers plain columns and the planner's strict-op normalizations
-        (`col - 1` / `col + 1`); anything else goes to the level loop's
-        host evaluation."""
-        cd = self._bound_col_delta(expr, table)
-        if cd is None:
-            return None
-        col = table.device_i32(cd[0], self.device)
-        return col + cd[1] if cd[1] else col
-
     def _device_resident_count(self, ctx, left: Table, right: Table):
         """One-pass BITS count over cached resident columns, or None if
         the plan shape doesn't qualify (multi-key, complex exprs, nullable
         keys, inverted builds) or degenerate probe rows require the exact
-        level path."""
+        level path.  Bounds are plain columns and the planner's strict-op
+        normalizations (`col - 1` / `col + 1`) over device-resident
+        columns; anything else goes to the level loop's host evaluation."""
         from sequila_tpu_torch.models.table import device_remaps
         from sequila_tpu_torch.ops.interval_join import counts_bits_fused
-        from sequila_tpu_torch.planner.expr import Column
 
-        if len(self.on) != 1:
+        synthetic = len(self.on) == 1 and all(isinstance(k, Literal) for k in self.on[0])
+        keys = None if synthetic else self._view_keys(left, right)
+        if not synthetic and keys is None:
             return None
-        l_on, r_on = self.on[0]
-        synthetic = isinstance(l_on, Literal) and isinstance(r_on, Literal)
-        if not synthetic and not (
-            isinstance(l_on, Column) and isinstance(r_on, Column)
-        ):
+        cds = self._bound_deltas(left, right)
+        if None in cds:
             return None
-        bs_cd = self._bound_col_delta(self.intervals.left_interval.start, left)
-        be_cd = self._bound_col_delta(self.intervals.left_interval.end, left)
-        if bs_cd is not None and be_cd is not None:
-            if left.min_i32_diff(be_cd[0], bs_cd[0], self.device) + be_cd[1] - bs_cd[1] < 0:
-                return None  # inverted build intervals break BITS
-        bounds = [
-            self._device_bound(self.intervals.left_interval.start, left),
-            self._device_bound(self.intervals.left_interval.end, left),
-            self._device_bound(self.intervals.right_interval.start, right),
-            self._device_bound(self.intervals.right_interval.end, right),
-        ]
-        if any(x is None for x in bounds):
-            return None
+        bs_cd, be_cd = cds[:2]
+        if left.min_i32_diff(be_cd[0], bs_cd[0], self.device) + be_cd[1] - bs_cd[1] < 0:
+            return None  # inverted build intervals break BITS
         dev = self.device
+        bounds = []
+        for table, (c, d) in zip((left, left, right, right), cds):
+            col = table.device_i32(c, dev)
+            bounds.append(col + d if d else col)
         if synthetic:
             lk = torch.zeros(left.num_rows, dtype=torch.int32, device=dev)
             rk = torch.zeros(right.num_rows, dtype=torch.int32, device=dev)
             remap_l = remap_r = torch.zeros(1, dtype=torch.int32, device=dev)
         else:
-            if left.column(l_on.index).null_count or right.column(r_on.index).null_count:
-                return None
+            l_on, r_on = keys
             lk = left.device_codes(l_on.index, dev)
             rk = right.device_codes(r_on.index, dev)
             remap_l, remap_r = device_remaps(left, l_on.index, right, r_on.index, dev)
@@ -846,20 +842,11 @@ class IntervalJoinExec(ExecPlan):
         """Cache key for the interval index (host or device), or None when
         the plan shape (multi-key, complex exprs, nullable keys) precludes
         it."""
-        from sequila_tpu_torch.planner.expr import Column
-
-        if len(self.on) != 1:
+        keys = self._view_keys(left, right)
+        bs_cd, be_cd = self._bound_deltas(left, right)[:2]
+        if keys is None or bs_cd is None or be_cd is None:
             return None
-        l_on, r_on = self.on[0]
-        if not (isinstance(l_on, Column) and isinstance(r_on, Column)):
-            return None
-        if left.column(l_on.index).null_count or right.column(r_on.index).null_count:
-            return None
-        bs_cd = self._bound_col_delta(self.intervals.left_interval.start, left)
-        be_cd = self._bound_col_delta(self.intervals.left_interval.end, left)
-        if bs_cd is None or be_cd is None:
-            return None
-        return ("devindex", l_on.index, r_on.index, bs_cd, be_cd, id(right))
+        return ("devindex", keys[0].index, keys[1].index, bs_cd, be_cd, id(right))
 
     def _use_host(self, left: Table, right: Table) -> bool:
         return left.num_rows + right.num_rows <= _host_threshold()
@@ -1271,44 +1258,30 @@ class IntervalJoinExec(ExecPlan):
         inverted-build data checks: the level-run identity is exact for
         every query and row shape.  SEQUILA_EMIT_BACKEND=cosort forces the
         co-sort bounds."""
-        from sequila_tpu_torch.models.table import merge_dictionaries
+        from sequila_tpu_torch.models.table import view_remaps
         from sequila_tpu_torch.ops.cuda import merge_count as mc
-        from sequila_tpu_torch.planner.expr import Column
 
         if _os.environ.get("SEQUILA_EMIT_BACKEND", "merge") != "merge":
             return None
-        if len(self.on) != 1 or left.num_rows == 0 or right.num_rows == 0:
+        keys = self._view_keys(left, right)
+        if keys is None or left.num_rows == 0 or right.num_rows == 0:
             return None
-        l_on, r_on = self.on[0]
-        if not (isinstance(l_on, Column) and isinstance(r_on, Column)):
+        l_on, r_on = keys
+        cds = self._bound_deltas(left, right)
+        if None in cds:
             return None
-        if left.column(l_on.index).null_count or right.column(r_on.index).null_count:
+        bs_cd, be_cd, qs_cd, qe_cd = cds
+        remaps = view_remaps(left, l_on.index, right, r_on.index, self.device)
+        if remaps is None:
             return None
-        bs_cd = self._bound_col_delta(self.intervals.left_interval.start, left)
-        be_cd = self._bound_col_delta(self.intervals.left_interval.end, left)
-        qs_cd = self._bound_col_delta(self.intervals.right_interval.start, right)
-        qe_cd = self._bound_col_delta(self.intervals.right_interval.end, right)
-        if None in (bs_cd, be_cd, qs_cd, qe_cd):
-            return None
-        lvals = left.dict_values(l_on.index, self.device)
-        rvals = right.dict_values(r_on.index, self.device)
-        if len(lvals) and len(rvals) and type(lvals[0]) is not type(rvals[0]):
-            return None  # str-coercing merge would break monotone remaps
 
         # plan memo (the count path's 'mcount' memo): valid() pins the
         # index identity, so a cache miss in _prepare invalidates the plan
         def build():
             with span("join.plan"):
-                remap_b, remap_q = merge_dictionaries(lvals, rvals)
-                views = (
-                    left.per_key_minmax(l_on.index, bs_cd[0], self.device),
-                    left.per_key_minmax(l_on.index, be_cd[0], self.device),
-                    right.per_key_minmax(r_on.index, qs_cd[0], self.device),
-                    right.per_key_minmax(r_on.index, qe_cd[0], self.device),
-                )
                 return index, mc.plan_level_bounds(
                     index, right, r_on.index, qs_cd, qe_cd, bs_cd, be_cd,
-                    remap_b, remap_q, views,
+                    *remaps, self._view_extrema(left, right, l_on, r_on, cds),
                 )
 
         _, plan = left.paired_memo(
@@ -1436,7 +1409,7 @@ class IntervalJoinExec(ExecPlan):
         if left.num_rows == 0 or right.num_rows == 0:
             ctx.metrics.add(op, "output_rows", 0)
             return 0, None
-        backend = _os.environ.get("SEQUILA_COUNT_BACKEND", "merge")
+        backend = count_backend()
         # each route returns None for a shape it declines, which passes on
         # to the next, in the JAX package's order
         routes = [("stream", self._stream_sorted_count)] if backend == "stream" else []
@@ -1510,7 +1483,7 @@ class IntervalJoinExec(ExecPlan):
             hidx, rcodes, rs, re = self._host_index(ctx, left, right)
             with ctx.timer(self.op_id(), "join_time", "host_index.query"):
                 counts, route = hidx.counts(rcodes, rs, re).astype(np.int32), "host"
-        elif _os.environ.get("SEQUILA_COUNT_BACKEND", "merge") == "merge":
+        elif count_backend() == "merge":
             counts, route = self._merge_probe_counts(ctx, left, right), "merge"
         if counts is None:
             counts, route = self._level_probe_counts(ctx, left, right), "level"
@@ -1555,14 +1528,9 @@ class IntervalJoinExec(ExecPlan):
         or None if the packing is infeasible (span > 32 bits)."""
         from sequila_tpu_torch.ops.cuda import merge_count as mc
 
-        views = (
-            left.per_key_minmax(l_on.index, bs_cd[0], self.device),
-            left.per_key_minmax(l_on.index, be_cd[0], self.device),
-            right.per_key_minmax(r_on.index, qs_cd[0], self.device),
-            right.per_key_minmax(r_on.index, qe_cd[0], self.device),
-        )
-        deltas = (bs_cd[1], be_cd[1], qs_cd[1], qe_cd[1])
-        ctabs = mc.plan_packing(remap_b, remap_q, views, deltas)
+        cds = (bs_cd, be_cd, qs_cd, qe_cd)
+        views = self._view_extrema(left, right, l_on, r_on, cds)
+        ctabs = mc.plan_packing(remap_b, remap_q, views, [d for _, d in cds])
         if ctabs is None:
             return None
         dev = self.device
@@ -1611,18 +1579,15 @@ class IntervalJoinExec(ExecPlan):
             if isinstance(l, Column) and isinstance(r, Column)
         ]
 
-        def col(stats, expr, table_side):
-            cd = self._bound_col_delta(expr, table_side)
+        def col(stats, cd):
             if cd is None or cd[0] >= len(stats.column_statistics):
                 return ColumnStatistics()
             return stats.column_statistics[cd[0]]
 
-        sel = interval_overlap_selectivity(
-            col(lstat, self.intervals.left_interval.start, None),
-            col(lstat, self.intervals.left_interval.end, None),
-            col(rstat, self.intervals.right_interval.start, None),
-            col(rstat, self.intervals.right_interval.end, None),
-        )
+        sel = interval_overlap_selectivity(*(
+            col(stats, cd)
+            for stats, cd in zip((lstat, lstat, rstat, rstat), self._bound_deltas(None, None))
+        ))
         return estimate_join_statistics(
             self.join_type, lstat, rstat, on, selectivity=sel
         )

@@ -29,13 +29,6 @@ def _device_key(device) -> str:
     return str(torch.device(device))
 
 
-def _on_card(device) -> bool:
-    """Whether a table's sorted views asked for on ``device`` are built
-    there, by a device sort: on a CUDA card, not on the CPU or with no
-    device named (the host's native radix sort)."""
-    return device is not None and torch.device(device).type == "cuda"
-
-
 # sorted views: real rows, then PAD slots up to a multiple of VIEW_CHUNK
 VIEW_PAD = 2**31 - 1
 VIEW_CHUNK = 2048
@@ -52,11 +45,10 @@ def build_sorted_view(codes: torch.Tensor, vals: torch.Tensor, keys=None):
     One stable ``torch.sort`` of the int64 composite (code << 32) |
     (value + 2^31): rows that tie keep their order, so ``order`` (int32,
     real rows only) is ``np.lexsort((vals, codes))``, and the keys and
-    values, split from the sorted composite by shift and mask, equal the
-    host build's.  Keys and values are int32, padded to a VIEW_CHUNK
-    multiple with VIEW_PAD.  ``keys``, the keys of another view of the same
-    codes, is returned as it is: the sorted codes are the same whatever the
-    value column."""
+    values are split from the sorted composite by shift and mask.  Keys
+    and values are int32, padded to a VIEW_CHUNK multiple with VIEW_PAD.
+    ``keys``, the keys of another view of the same codes, is returned as it
+    is: the sorted codes are the same whatever the value column."""
     n = codes.shape[0]
     comp = codes.to(torch.int64) << 32
     comp |= vals.to(torch.int64) + 2**31
@@ -362,7 +354,7 @@ class Table:
         in the joint key space — the basis of the sort-free count path.
         Readers that need only the values or the device codes take
         ``dict_values`` / ``device_codes``: the host codes of a dictionary
-        built on a card are its device codes copied back, once."""
+        built on a device are its device codes copied back, once."""
         entry = self._dictionary(name_or_idx, device)
         codes = self._host_codes(name_or_idx, entry)
         if device is None:
@@ -370,13 +362,13 @@ class Table:
         return codes, entry[1], self.device_codes(name_or_idx, device)
 
     def dict_values(self, name_or_idx, device=None) -> np.ndarray:
-        """The sorted dictionary values of ``dict_codes``; asked for a card,
-        the dictionary is built there (``_dictionary``)."""
+        """The sorted dictionary values of ``dict_codes``; asked for a
+        device, the dictionary is built there (``_dictionary``)."""
         return self._dictionary(name_or_idx, device)[1]
 
     def device_codes(self, name_or_idx, device) -> torch.Tensor:
         """The int32 codes of ``dict_codes`` on ``device``, cached: built
-        there on a card, else the host codes uploaded."""
+        there, else the host codes uploaded."""
         entry = self._dictionary(name_or_idx, device)
         dkey = ("codes", name_or_idx, _device_key(device))
         if dkey not in self._dev_i32:
@@ -386,17 +378,19 @@ class Table:
     def _dictionary(self, name_or_idx, device=None) -> list:
         """[host codes or None, sorted values, device key or None], cached.
 
-        Asked for a card, a null-free ``string`` / ``large_string`` column
-        is coded there (``ops/cuda/string_keys.code_strings``, span
-        ``table.dict_device``, counter ``dict_device_builds``): its device
-        codes are cached under the device key and its host codes left
-        unmade.  Every other column, and one with two strings of one key
-        (``dict_host_fallbacks``), is coded here by Arrow's encoder."""
+        Asked for a device, the CPU included, a null-free ``string`` /
+        ``large_string`` column is coded there
+        (``ops/cuda/string_keys.code_strings``, span ``table.dict_device``,
+        counter ``dict_device_builds``): its device codes are cached under
+        the device key and its host codes left unmade.  Every other column,
+        one with two strings of one key (``dict_host_fallbacks``), and a
+        column asked for with no device are coded here by Arrow's
+        encoder."""
         key = name_or_idx
         entry = self._codes.get(key)
         if entry is None:
-            if _on_card(device):
-                entry = self._dictionary_on_card(name_or_idx, device)
+            if device is not None:
+                entry = self._dictionary_on_device(name_or_idx, device)
             if entry is None:
                 with span("table.dict_codes", rows=self.num_rows):
                     col = self._t.column(name_or_idx).combine_chunks()
@@ -412,7 +406,7 @@ class Table:
             self._codes[key] = entry
         return entry
 
-    def _dictionary_on_card(self, name_or_idx, device) -> list | None:
+    def _dictionary_on_device(self, name_or_idx, device) -> list | None:
         from sequila_tpu_torch.ops.cuda.string_keys import code_strings
 
         col = self._t.column(name_or_idx)
@@ -434,7 +428,7 @@ class Table:
         return [None, values, dkey]
 
     def _host_codes(self, name_or_idx, entry: list) -> np.ndarray:
-        """The host codes of a ``_dictionary`` entry: for a card's build,
+        """The host codes of a ``_dictionary`` entry: for a device's build,
         its device codes copied back once (span ``table.dict_host``)."""
         if entry[0] is None:
             codes = self._dev_i32[("codes", name_or_idx, entry[2])]
@@ -460,92 +454,44 @@ class Table:
             count("view_device_builds")
         return self._dev_i32[cache_key]
 
-    def _sorted_view_host(self, key_col, val_col):
-        """(keys, values, n, order) numpy arrays of the sorted view, cached:
-        copied back from a view built on a card, else sorted here."""
-        key = ("sivh", key_col, val_col)
-        if key not in self._i32:
-            built = next(
-                (v for k, v in self._dev_i32.items()
-                 if isinstance(k, tuple) and k[:3] == ("sivd", key_col, val_col)),
-                None,
-            )
-            if built is not None:
-                K, V, n, order = built
-                with span("table.view_host", rows=n):
-                    K, V, order = (to_host(t) for t in (K, V, order))
-            else:
-                K, V, n, order = self._sort_view_host(key_col, val_col)
-            for a in (K, V, order):
-                a.flags.writeable = False
-            self._i32[key] = (K, V, n, order)
-        return self._i32[key]
-
-    def _sort_view_host(self, key_col, val_col):
-        """(keys, values, n, order) of the view sorted on the host."""
-        from sequila_tpu_torch.native.loader import argsort64
-
-        codes, _, _ = self.dict_codes(key_col)
-        vals = self.column_as_i32(val_col)
-        with span("table.view_sort", rows=self.num_rows):
-            # the stable native radix over the order-preserving (code,
-            # value) composite is np.lexsort's order, about 8x faster
-            order = argsort64(
-                (codes.astype(np.int64) << 32) | (vals.astype(np.int64) + 2**31)
-            )
-            if order is None:
-                order = np.lexsort((vals, codes))
-            n = len(order)
-            K = np.full(_view_pad(n), VIEW_PAD, np.int32)
-            V = np.full(_view_pad(n), VIEW_PAD, np.int32)
-            K[:n] = codes[order]
-            V[:n] = vals[order]
-        return K, V, n, order.astype(np.int32)
-
     def sorted_interval_view(self, key_col, val_col, device):
         """(keys, values, n): the (key code, i32 value) pairs sorted by
         (code, value), padded to a 2048 multiple with PAD sentinels
-        (2^31 - 1), as int32 tensors on ``device``.  Cached — the engine's
-        sorted columnar view for the merge kernels.  On a card the view is
-        sorted there; elsewhere it is sorted on the host and copied."""
-        if _on_card(device):
-            return self._device_view(key_col, val_col, device)[:3]
-        cache_key = ("siv", key_col, val_col, _device_key(device))
-        if cache_key not in self._dev_i32:
-            K, V, n, _ = self._sorted_view_host(key_col, val_col)
-            self._dev_i32[cache_key] = (to_device(K, device), to_device(V, device), n)
-        return self._dev_i32[cache_key]
+        (2^31 - 1), as int32 tensors on ``device``, where they are sorted.
+        Cached — the engine's sorted columnar view for the merge kernels."""
+        return self._device_view(key_col, val_col, device)[:3]
 
-    def sorted_interval_host(self, key_col, val_col):
-        """(keys, values, n): ``sorted_interval_view`` as numpy arrays."""
-        return self._sorted_view_host(key_col, val_col)[:3]
+    def sorted_interval_host(self, key_col, val_col, device):
+        """(keys, values, n): ``sorted_interval_view`` on ``device`` copied
+        back as read-only numpy arrays (span ``table.view_host``), cached."""
+        key = ("sivh", key_col, val_col, _device_key(device))
+        if key not in self._i32:
+            K, V, n, _ = self._device_view(key_col, val_col, device)
+            with span("table.view_host", rows=n):
+                K, V = to_host(K), to_host(V)
+            K.flags.writeable = V.flags.writeable = False
+            self._i32[key] = (K, V, n)
+        return self._i32[key]
 
-    def sorted_interval_order(self, key_col, val_col) -> np.ndarray:
-        """Permutation behind ``sorted_interval_view``: slot i of the sorted
-        view holds original row ``order[i]`` (real rows only, length
-        num_rows)."""
-        return self._sorted_view_host(key_col, val_col)[3]
+    def sorted_interval_order(self, key_col, val_col, device) -> torch.Tensor:
+        """Permutation behind ``sorted_interval_view`` as an int32 tensor
+        on ``device``: slot i of the sorted view holds original row
+        ``order[i]`` (real rows only, length num_rows)."""
+        return self._device_view(key_col, val_col, device)[3]
 
     def sorted_interval_inverse(self, key_col, val_col, device) -> torch.Tensor:
         """Inverse of ``sorted_interval_order`` as an int32 tensor on
         ``device``: original row i sits at slot ``inv[i]`` of the sorted
-        view.  Cached per view and device; on a card scattered there from
-        the view's order."""
+        view.  Cached per view and device, scattered from the view's
+        order."""
         cache_key = ("sivinv", key_col, val_col, _device_key(device))
         if cache_key not in self._dev_i32:
-            if _on_card(device):
-                order = self._device_view(key_col, val_col, device)[3]
-                with span("table.inverse", rows=len(order)):
-                    inv = torch.empty_like(order)
-                    inv[order.long()] = torch.arange(
-                        len(order), dtype=torch.int32, device=order.device
-                    )
-            else:
-                order = self.sorted_interval_order(key_col, val_col)
-                with span("table.inverse", rows=len(order)):
-                    inv = np.empty(len(order), np.int32)
-                    inv[order] = np.arange(len(order), dtype=np.int32)
-                inv = to_device(inv, device)
+            order = self.sorted_interval_order(key_col, val_col, device)
+            with span("table.inverse", rows=len(order)):
+                inv = torch.empty_like(order)
+                inv[order.long()] = torch.arange(
+                    len(order), dtype=torch.int32, device=order.device
+                )
             self._dev_i32[cache_key] = inv
         return self._dev_i32[cache_key]
 
@@ -832,83 +778,45 @@ class Table:
         self._i32[name_or_idx] = out
         return out
 
-    def min_i32_diff(self, hi_col, lo_col, device=None) -> int:
+    def min_i32_diff(self, hi_col, lo_col, device) -> int:
         """min(i32[hi_col] - i32[lo_col]) over all rows, cached.
 
         The BITS-count eligibility checks (no inverted build intervals,
         no degenerate probes) reduce to this statistic shifted by the
         strict-op deltas; caching it makes the checks free on repeated
-        queries.  Returns 0 for an empty table (nothing is inverted).  On
-        a card (``device``) it reduces the columns uploaded there."""
+        queries.  Returns 0 for an empty table (nothing is inverted).  It
+        reduces the columns uploaded to ``device``."""
         key = ("mindiff", hi_col, lo_col)
         cached = self._i32.get(key)
         if cached is None:
             if not self.num_rows:
                 cached = 0
-            elif _on_card(device):
+            else:
                 hi = self.device_i32(hi_col, device)
                 lo = self.device_i32(lo_col, device)
                 with span("table.min_gap", rows=self.num_rows):
                     cached = int(to_host((hi.to(torch.int64) - lo).min()))
-            else:
-                hi = self.column_as_i32(hi_col)
-                lo = self.column_as_i32(lo_col)
-                with span("table.min_gap", rows=self.num_rows):
-                    cached = int((hi.astype(np.int64) - lo).min())
             self._i32[key] = cached
         return cached
 
-    def per_key_minmax(self, key_col, val_col, device=None):
+    def per_key_minmax(self, key_col, val_col, device):
         """Per-dictionary-code (min, max) int64 arrays of an i32 value
         column, cached.
 
         The packed-uint32 count kernel compacts each key segment's value
         range into a shared 32-bit domain; the per-key extrema (merged
         with the other side's, shifted by the planner's ±lit deltas) size
-        the segment bases.  On a card (``device``) they are each code's
-        first and last value in the sorted view built there, read back in
-        one copy; elsewhere the native radix argsort over (code << 32 |
-        biased value) composites — O(n) boundary reads after the sort."""
+        the segment bases.  They are each code's first and last value in
+        the sorted view built on ``device``, read back in one copy."""
         key = ("pkmm", key_col, val_col)
-        cached = self._i32.get(key)
-        if cached is not None:
-            return cached
-        if _on_card(device):
+        if key not in self._i32:
             k = len(self.dict_values(key_col, device))
             K, V, n, _ = self._device_view(key_col, val_col, device)
             with span("table.key_minmax", rows=self.num_rows):
                 mins, maxs = to_host(view_key_extrema(K, V, n, k))
-            mins.flags.writeable = False
-            maxs.flags.writeable = False
+            mins.flags.writeable = maxs.flags.writeable = False
             self._i32[key] = (mins, maxs)
-            return self._i32[key]
-        codes, values, _ = self.dict_codes(key_col)
-        vals = self.column_as_i32(val_col)
-        with span("table.key_minmax", rows=self.num_rows):
-            self._i32[key] = self._per_key_minmax(codes, len(values), vals)
         return self._i32[key]
-
-    @staticmethod
-    def _per_key_minmax(codes, k, vals):
-        n = len(codes)
-        mins = np.full(k, np.iinfo(np.int64).max, np.int64)
-        maxs = np.full(k, np.iinfo(np.int64).min, np.int64)
-        if n:
-            comp = (codes.astype(np.int64) << 32) | (
-                vals.astype(np.int64) + (1 << 31)
-            )
-            comp.sort()
-            scodes = (comp >> 32).astype(np.int32)
-            svals = (comp & 0xFFFFFFFF) - (1 << 31)
-            # first/last occurrence of each present code
-            firsts = np.searchsorted(scodes, np.arange(k, dtype=np.int32), "left")
-            lasts = np.searchsorted(scodes, np.arange(k, dtype=np.int32), "right")
-            present = lasts > firsts
-            mins[present] = svals[firsts[present]]
-            maxs[present] = svals[lasts[present] - 1]
-        mins.flags.writeable = False
-        maxs.flags.writeable = False
-        return mins, maxs
 
     def _column_as_i32_uncached(self, name_or_idx) -> np.ndarray:
         col = self._t.column(name_or_idx)
@@ -1019,6 +927,31 @@ def merge_dictionaries(lvals: np.ndarray, rvals: np.ndarray):
     both = np.concatenate([lv, rv])
     _, inv = np.unique(both, return_inverse=True)
     return inv[: len(lv)].astype(np.int32), inv[len(lv):].astype(np.int32)
+
+
+def view_remaps(left: "Table", l_col, right: "Table", r_col, device):
+    """``merge_dictionaries``' (remap_l, remap_r) of two tables' key
+    columns coded on ``device``, or None when the dictionaries' value types
+    differ: the string-coercing merge would break the monotone remaps that
+    keep the cached sorted views sorted in the joint key space."""
+    lvals = left.dict_values(l_col, device)
+    rvals = right.dict_values(r_col, device)
+    if len(lvals) and len(rvals) and type(lvals[0]) is not type(rvals[0]):
+        return None
+    return merge_dictionaries(lvals, rvals)
+
+
+def view_extrema(build: "Table", b_key, probe: "Table", q_key, cols, device):
+    """The per-key extrema (``Table.per_key_minmax`` on ``device``) of the
+    build's start and end and the probe's start and end columns, ``cols``
+    = (bs, be, qs, qe), in that order."""
+    bs, be, qs, qe = cols
+    return (
+        build.per_key_minmax(b_key, bs, device),
+        build.per_key_minmax(b_key, be, device),
+        probe.per_key_minmax(q_key, qs, device),
+        probe.per_key_minmax(q_key, qe, device),
+    )
 
 
 def device_remaps(left: "Table", l_col, right: "Table", r_col, device):

@@ -665,7 +665,7 @@ def plan_verb_ranks(build, probe, cols_b, cols_q, *, want4: bool, device):
     host chunk windows and padded orders (TPU workarounds the merge path
     does not need): both plans carry the probe views' cached int32 inverse
     orders."""
-    from sequila_tpu_torch.models.table import merge_dictionaries
+    from sequila_tpu_torch.models.table import view_extrema, view_remaps
 
     kb, s_b, e_b = cols_b
     kq, s_q, e_q = cols_q
@@ -675,16 +675,12 @@ def plan_verb_ranks(build, probe, cols_b, cols_q, *, want4: bool, device):
         return None
     if probe.min_i32_diff(e_q, s_q, device) < 0 or build.min_i32_diff(e_b, s_b, device) < 0:
         return None
-    bvals = build.dict_values(kb, device)
-    qvals = probe.dict_values(kq, device)
-    if len(bvals) and len(qvals) and type(bvals[0]) is not type(qvals[0]):
+    remaps = view_remaps(build, kb, probe, kq, device)
+    if remaps is None:
         return None
-    remap_b, remap_q = merge_dictionaries(bvals, qvals)
+    remap_b, remap_q = remaps
     nkeys = int(max(remap_b.max(initial=-1), remap_q.max(initial=-1))) + 1
-    bs_mm = build.per_key_minmax(kb, s_b, device)
-    be_mm = build.per_key_minmax(kb, e_b, device)
-    qs_mm = probe.per_key_minmax(kq, s_q, device)
-    qe_mm = probe.per_key_minmax(kq, e_q, device)
+    bs_mm, be_mm, qs_mm, qe_mm = view_extrema(build, kb, probe, kq, (s_b, e_b, s_q, e_q), device)
 
     def dom(b_mm, q_mm):
         return _joint_domain(
@@ -875,7 +871,7 @@ def plan_level_bounds(index, probe, r_key, qs_cd, qe_cd, bs_cd, be_cd,
     bound deltas already applied to its stored starts and ends, so the
     index-side C tables carry delta 0 while the domains span the raw
     extrema plus delta.  ``views`` = per-LOCAL-code extrema of the four raw
-    columns (Table.per_key_minmax order: bs, be, qs, qe); ``*_cd`` =
+    columns (models/table.view_extrema: bs, be, qs, qe); ``*_cd`` =
     (column index, delta).  The plan lives on ``index.device``.  Port of
     sequila_tpu/ops/pallas/merge_count.py::plan_level_bounds; the CUDA B1
     reads no chunk windows, and packs each level's REAL rows raw from the
@@ -913,8 +909,7 @@ def plan_level_bounds(index, probe, r_key, qs_cd, qe_cd, bs_cd, be_cd,
     # the views' real rows lead and their PAD slots trail, so the orders
     # (real rows only) scatter the first n ranks and nothing else
     ord_qe, ord_qs = (
-        to_device(probe.sorted_interval_order(r_key, c).astype(np.int64), dev)
-        for c in (qe_cd[0], qs_cd[0])
+        probe.sorted_interval_order(r_key, c, dev).long() for c in (qe_cd[0], qs_cd[0])
     )
     # slots of a call: 0 packed probe ends, 1 packed probe starts, 2 the
     # [2, L, n] bounds (lb rows, then ub rows) flattened

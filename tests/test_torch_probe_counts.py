@@ -254,7 +254,7 @@ class TestMergeProbeCountPasses:
         assert tplan.inv_qs is tr.sorted_interval_inverse(0, 1, "cpu")
         for inv, col in ((tplan.inv_qe, 2), (tplan.inv_qs, 1)):
             assert inv.dtype == torch.int32 and inv.shape == (n,)
-            np.testing.assert_array_equal(inv.numpy()[tr.sorted_interval_order(0, col)],
+            np.testing.assert_array_equal(inv.numpy()[tr.sorted_interval_order(0, col, "cpu").numpy()],
                                           np.arange(n))
 
     def test_build_pad_rows_count_in_neither_pass(self, rng):

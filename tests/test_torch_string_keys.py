@@ -3,10 +3,9 @@
 On the CPU, ``code_strings`` runs the kernels' plain versions: the whole
 device coding, held to ``Table.dict_codes``' host path (Arrow's encoder)
 bit for bit in the codes and equal in the values and their type.  Through
-``Table`` (``_on_card`` patched, as the session's card build is reached on
-the CPU) a collision falls back to the host encoder, nulls and other key
-types keep it, and the host codes of a card build come from its device
-codes.  The ``cuda`` tests hold the kernels to their plain versions and a
+``Table``, asked for the device "cpu" (the card's build on CPU tensors), a
+collision falls back to the host encoder, nulls and other key types keep
+it, and the host codes of a device build come from its device codes.  The ``cuda`` tests hold the kernels to their plain versions and a
 fresh table's count to the host path on the card.  No JAX here: the
 ``cuda`` tests run on the card.
 """
@@ -16,7 +15,6 @@ import pyarrow as pa
 import pytest
 import torch
 
-from sequila_tpu_torch.models import table
 from sequila_tpu_torch.models.table import Table
 from sequila_tpu_torch.ops.cuda import string_keys as sk
 from sequila_tpu_torch.session import SessionContext
@@ -135,19 +133,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                          torch.zeros(1, dtype=torch.int64))
 
 
-@pytest.fixture
-def card_path(monkeypatch):
-    """Table's card builds, reached with the device "cpu"."""
-    monkeypatch.setattr(table, "_on_card", lambda device: device is not None)
-
-
 def _coded(t: Table, col=0):
     with metrics.recording() as rec:
         values = t.dict_values(col, "cpu")
     return values, rec
 
 
-def test_table_codes_on_the_card_path(rng, card_path):
+def test_table_codes_on_the_card_path(rng):
     """A card build records its span and counter, keeps no host codes, and
     gives the host path's codes on the device and, copied back once, on
     the host."""
@@ -169,7 +161,7 @@ def test_table_codes_on_the_card_path(rng, card_path):
     np.testing.assert_array_equal(dev.numpy(), want_codes)
 
 
-def test_device_codes_first_build_on_the_card_path(rng, card_path):
+def test_device_codes_first_build_on_the_card_path(rng):
     """Device codes asked for before anything else: one card build, kept
     as it is, no host codes made."""
     arr = _cases(rng)["words"]
@@ -182,7 +174,7 @@ def test_device_codes_first_build_on_the_card_path(rng, card_path):
     np.testing.assert_array_equal(codes.numpy(), want_codes)
 
 
-def test_collision_falls_back_to_the_host_encoder(rng, card_path, monkeypatch):
+def test_collision_falls_back_to_the_host_encoder(rng, monkeypatch):
     """Keys that put every row in one group: the check finds the
     collision, the column is coded on the host, counted once."""
     monkeypatch.setattr(sk, "string_keys", lambda off, data, base: torch.zeros(
@@ -204,12 +196,12 @@ def test_collision_falls_back_to_the_host_encoder(rng, card_path, monkeypatch):
     pa.array([3, 1, 3, 2], pa.int64()),
     pa.array(["a", "b", "a"]).dictionary_encode(),
 ], ids=["nulls", "int64", "dictionary"])
-def test_other_columns_keep_the_host_encoder(card_path, column):
+def test_other_columns_keep_the_host_encoder(column):
     """Null-bearing and non-string keys are not coded on the card (the
     operators route null keys away before they ask for codes)."""
     t = Table(pa.table({"k": column}))
     with metrics.recording() as rec:
-        assert t._dictionary_on_card(0, "cpu") is None
+        assert t._dictionary_on_device(0, "cpu") is None
     assert rec.events().spans == [] and rec.counts() == {}
     if column.null_count:
         return
@@ -222,14 +214,16 @@ def test_other_columns_keep_the_host_encoder(card_path, column):
 
 
 def test_the_host_path_stays_off_the_card(rng):
-    """No device, or the CPU: Arrow's encoder, no card build."""
+    """No device: Arrow's encoder; a named device, the CPU too: the device
+    coding, no host codes made."""
     arr = _cases(rng)["words"]
-    for device in (None, "cpu"):
+    for device, span, host_codes in ((None, "table.dict_codes", True),
+                                     ("cpu", "table.dict_device", False)):
         t = Table(pa.table({"k": arr}))
         with metrics.recording() as rec:
             t.dict_values(0, device)
-        assert [s.name for s in rec.events().spans] == ["table.dict_codes"]
-        assert t._codes[0][0] is not None
+        assert [s.name for s in rec.events().spans] == [span]
+        assert (t._codes[0][0] is not None) == host_codes
 
 
 def _card():

@@ -51,7 +51,7 @@ def test_sorted_interval_view(tables, val_col):
     jt, tt = tables
     jk, jv, jkh, jvh, jn = jt.sorted_interval_view(0, val_col)
     tk, tv, tn = tt.sorted_interval_view(0, val_col, "cpu")
-    tkh, tvh, hn = tt.sorted_interval_host(0, val_col)
+    tkh, tvh, hn = tt.sorted_interval_host(0, val_col, "cpu")
     assert tn == hn == jn
     assert len(tkh) % 2048 == 0 and (tkh[tn:] == 2**31 - 1).all()
     np.testing.assert_array_equal(tkh, jkh)
@@ -66,9 +66,9 @@ def test_sorted_interval_view(tables, val_col):
 @pytest.mark.parametrize("val_col", [1, 2])
 def test_sorted_interval_order(tables, val_col):
     jt, tt = tables
-    np.testing.assert_array_equal(
-        tt.sorted_interval_order(0, val_col), jt.sorted_interval_order(0, val_col)
-    )
+    order = tt.sorted_interval_order(0, val_col, "cpu")
+    assert order.dtype == torch.int32
+    np.testing.assert_array_equal(order.numpy(), jt.sorted_interval_order(0, val_col))
 
 
 def test_device_i32_and_statistics(tables):
@@ -77,11 +77,11 @@ def test_device_i32_and_statistics(tables):
         got = tt.device_i32(col, "cpu")
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), np.asarray(jt.device_i32(col)))
-        mins_t, maxs_t = tt.per_key_minmax(0, col)
+        mins_t, maxs_t = tt.per_key_minmax(0, col, "cpu")
         mins_j, maxs_j = jt.per_key_minmax(0, col)
         np.testing.assert_array_equal(mins_t, mins_j)
         np.testing.assert_array_equal(maxs_t, maxs_j)
-    assert tt.min_i32_diff(2, 1) == jt.min_i32_diff(2, 1)
+    assert tt.min_i32_diff(2, 1, "cpu") == jt.min_i32_diff(2, 1)
 
 
 def test_device_remaps_is_off_the_slice(tables, rng):
@@ -117,56 +117,44 @@ def _view_arrow(rng, n, contigs, ties):
     return pa.table({"contig": [f"chr{k}" for k in keys], "s": s, "e": e})
 
 
-@pytest.fixture
-def on_card(monkeypatch):
-    """Route the CPU through the card's view build (a device sort)."""
-    from sequila_tpu_torch.models import table
-
-    monkeypatch.setattr(table, "_on_card", lambda device: device is not None)
-
-
 @pytest.mark.parametrize("ties", [False, True], ids=["spread", "ties"])
 @pytest.mark.parametrize("contigs", [1, 300])
 @pytest.mark.parametrize("n", [0, 1, 2047, 2048, 2049])
 def test_device_view_build_is_the_host_build(rng, n, contigs, ties):
     """build_sorted_view on CPU tensors and the extrema read from it against
-    the port's host build and the JAX package, bit for bit: keys, values,
-    n, the order, the per-key extrema and the min gap."""
+    the JAX package, bit for bit: keys, values, n, the order and the
+    per-key extrema."""
     from sequila_tpu_torch.models.table import build_sorted_view, view_key_extrema
 
     t = _view_arrow(rng, n, contigs, ties)
-    jt, host = JaxTable(t), TorchTable(t)
-    codes = torch.tensor(host.dict_codes(0)[0])
-    k = len(host.dict_codes(0)[1])
+    jt, tt = JaxTable(t), TorchTable(t)
+    codes = torch.tensor(tt.dict_codes(0)[0])
+    k = len(tt.dict_codes(0)[1])
     keys = None
     for col in (1, 2):
-        vals = torch.tensor(host.column_as_i32(col))
+        vals = torch.tensor(tt.column_as_i32(col))
         K, V, vn, order = build_sorted_view(codes, vals, keys)
         keys = K
-        hk, hv, hn, horder = host._sorted_view_host(0, col)
         _, _, jkh, jvh, jn = jt.sorted_interval_view(0, col)
-        assert vn == hn == jn == n
+        assert vn == jn == n
         assert K.dtype == V.dtype == order.dtype == torch.int32
-        for got, want in ((K, hk), (V, hv), (K, jkh), (V, jvh), (order, horder),
-                          (order, jt.sorted_interval_order(0, col))):
+        for got, want in ((K, jkh), (V, jvh), (order, jt.sorted_interval_order(0, col))):
             np.testing.assert_array_equal(got.numpy(), want)
         mins, maxs = view_key_extrema(K, V, vn, k).numpy()
         for got, want in zip((mins, maxs), jt.per_key_minmax(0, col)):
             np.testing.assert_array_equal(got, want)
-        for got, want in zip((mins, maxs), host.per_key_minmax(0, col)):
-            np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("n", [0, 1, 2047, 2048, 2049])
-def test_table_views_on_card_path(rng, on_card, n):
-    """A Table on the card's path (here CPU tensors): the views, extrema,
-    min gap, lazy host twins and order equal the host build's and the JAX
-    package's; one keys tensor for both views; the inverse order is a
-    scatter of the device order and inverts it."""
+def test_table_views_on_card_path(rng, n):
+    """A Table's views on a device (here the CPU, whose build is the
+    card's): the views, extrema, min gap, lazy host twins and order equal
+    the JAX package's; one keys tensor for both views; the inverse order is
+    a scatter of the device order and inverts it."""
     from sequila_tpu_torch.utils import metrics
 
     t = _view_arrow(rng, n, 300, ties=True)
-    jt, tt, host = JaxTable(t), TorchTable(t), TorchTable(t)
+    jt, tt = JaxTable(t), TorchTable(t)
     with metrics.recording() as rec:
         assert tt.min_i32_diff(2, 1, "cpu") == jt.min_i32_diff(2, 1)
         for col in (1, 2):
@@ -179,19 +167,19 @@ def test_table_views_on_card_path(rng, on_card, n):
     assert rec.counts()["view_device_builds"] == 2
     assert views[0][0] is views[1][0]  # G2: one keys tensor a key column
     for col, (K, V, vn) in zip((1, 2), views):
-        jk, jv, _, _, jn = jt.sorted_interval_view(0, col)
+        jk, jv, jkh, jvh, jn = jt.sorted_interval_view(0, col)
         assert vn == jn
         np.testing.assert_array_equal(K.numpy(), np.asarray(jk))
         np.testing.assert_array_equal(V.numpy(), np.asarray(jv))
-        for got, want in zip(tt.sorted_interval_host(0, col), host.sorted_interval_host(0, col)):
-            np.testing.assert_array_equal(got, want)
-        order = tt.sorted_interval_order(0, col)
-        np.testing.assert_array_equal(order, host.sorted_interval_order(0, col))
+        kh, vh, hn = tt.sorted_interval_host(0, col, "cpu")
+        assert hn == jn and not kh.flags.writeable and not vh.flags.writeable
+        np.testing.assert_array_equal(kh, jkh)
+        np.testing.assert_array_equal(vh, jvh)
+        order = tt.sorted_interval_order(0, col, "cpu").numpy()
+        np.testing.assert_array_equal(order, jt.sorted_interval_order(0, col))
         inv = tt.sorted_interval_inverse(0, col, "cpu")
         assert inv.dtype == torch.int32 and inv.shape == (n,)
         np.testing.assert_array_equal(inv.numpy()[order], np.arange(n))
-        np.testing.assert_array_equal(inv.numpy(),
-                                      host.sorted_interval_inverse(0, col, "cpu").numpy())
         assert tt.sorted_interval_inverse(0, col, "cpu") is inv
     with metrics.recording() as again:
         for col in (1, 2):

@@ -151,7 +151,7 @@ class TestMergeVerbRank4:
         tplan = tmc.plan_verb_ranks(tb, ta, COLS, COLS, want4=True, device="cpu")
         n = a.num_rows
         for col, inv in ((2, tplan.inv_qe), (1, tplan.inv_qs)):
-            order = ta.sorted_interval_order(0, col)
+            order = ta.sorted_interval_order(0, col, "cpu").numpy()
             assert inv.dtype == torch.int32 and inv.shape == (n,)
             np.testing.assert_array_equal(inv.numpy()[order], np.arange(n))
             assert ta.sorted_interval_inverse(0, col, "cpu") is inv

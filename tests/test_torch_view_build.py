@@ -1,21 +1,23 @@
 """A table's sorted views built by a device sort, through the SQL session.
 
-On a card, ``models/table.py`` builds a sorted view, its per-key extrema
-and the min gap there (one stable ``torch.sort`` a view) and copies the
-host twins and order back only for a reader that asks.  On the CPU the
-host build stays.  The CPU tests route the CPU session through the card's
-build (``_on_card`` patched) and hold every route that reads the views to
-the host build's answers; the ``cuda`` test does the same on the card
-with a fresh table, counting the builds.  No JAX here: the ``cuda`` test
-runs on the card.
+On every device, the CPU included, ``models/table.py`` builds a sorted
+view, its per-key extrema and the min gap there (one stable ``torch.sort``
+a view) and copies the host twins back only for a reader that asks.  The
+CPU tests hold every route that reads the views, on a CPU session, to the
+native host index's answers (the default threshold's host route, which
+reads no view); the ``cuda`` test holds the card to the CPU session with
+a fresh table, counting the builds.  No JAX here: the ``cuda`` test runs
+on the card.
 """
+
+import os
+from unittest import mock
 
 import numpy as np
 import pyarrow as pa
 import pytest
 import torch
 
-from sequila_tpu_torch.models import table
 from sequila_tpu_torch.session import SessionContext
 from sequila_tpu_torch.utils import metrics
 
@@ -26,16 +28,17 @@ GROUPED = f"SELECT b.contig, count(*) FROM s1 a JOIN s2 b {ON} GROUP BY b.contig
 COVERAGE = "SELECT * FROM coverage('s2', 's1')"
 OVERLAPS = "SELECT * FROM count_overlaps('s2', 's1')"
 
-# (query, environment, views the first query builds on the card's path:
-# both tables' two views, or none where the route reads no view)
+# (query, environment, the device route that answers, views its first
+# query builds: both tables' two views, or none where the route reads no
+# view)
 CASES = {
-    "count-merge": (COUNT, {}, 4),
-    "count-stream": (COUNT, {"SEQUILA_COUNT_BACKEND": "stream"}, 4),
-    "count-cosort": (COUNT, {"SEQUILA_COUNT_BACKEND": "cosort"}, 0),
-    "select-merge": (SELECT, {}, 4),
-    "grouped": (GROUPED, {}, 4),
-    "coverage": (COVERAGE, {}, 4),
-    "count_overlaps": (OVERLAPS, {}, 4),
+    "count-merge": (COUNT, {}, "count_route_merge", 4),
+    "count-stream": (COUNT, {"SEQUILA_COUNT_BACKEND": "stream"}, "count_route_stream", 4),
+    "count-cosort": (COUNT, {"SEQUILA_COUNT_BACKEND": "cosort"}, "count_route_cosort", 0),
+    "select-merge": (SELECT, {}, "emit_route_merge", 4),
+    "grouped": (GROUPED, {}, "probe_count_route_merge", 4),
+    "coverage": (COVERAGE, {}, "verb_route_merge", 4),
+    "count_overlaps": (OVERLAPS, {}, "verb_route_merge", 4),
 }
 
 
@@ -75,36 +78,56 @@ def _answers(device, t1, t2, query):
     return rows, _route(ctx), rec.counts()["view_device_builds"]
 
 
-def test_views_are_built_on_cards_only():
-    assert table._on_card("cuda") and table._on_card(torch.device("cuda", 1))
-    assert not table._on_card("cpu") and not table._on_card(None)
-
-
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_card_build_answers_as_the_host_build(rng, monkeypatch, case):
-    """Every route that reads the views, on the CPU with the card's view
-    build, against the host build: the same answer on the same route."""
-    query, env, builds = CASES[case]
-    monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "0")
+def test_device_build_answers_as_the_host_route(rng, monkeypatch, case):
+    """Every route that reads the views, on a CPU session on the device
+    route, against the same query on the default threshold's host route
+    (the native host index, which reads no view): the same answer, on the
+    route asked for, with the views built on the CPU."""
+    query, env, route, builds = CASES[case]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     t1, t2 = _table(rng, 3_000), _table(rng, 4_000)
-    want, want_route, none = _answers("cpu", t1, t2, query)
-    assert none == 0
-    monkeypatch.setattr(table, "_on_card", lambda device: device is not None)
-    got, route, built = _answers("cpu", t1, t2, query)
-    assert (got, route, built) == (want, want_route, builds)
+    want, host_route, none = _answers("cpu", t1, t2, query)
+    assert none == 0 and len(host_route) == 1 and host_route[0].endswith("_route_host")
+    monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "0")
+    got, got_route, built = _answers("cpu", t1, t2, query)
+    assert (got, got_route, built) == (want, [route], builds)
     if query == COUNT:
         assert got == [(_reference_count(t1, t2),)]
+
+
+@pytest.mark.parametrize("query,dict_span", [(COUNT, "table.dict_device"),
+                                             (SELECT, "table.dict_codes")],
+                         ids=["count", "select"])
+def test_cpu_session_builds_its_views_on_the_cpu(rng, query, dict_span):
+    """A CPU session on the device route builds both tables' two views on
+    the CPU by the card's build and copies none back (the device SELECT *
+    reads the orders on the device); the count codes both key columns
+    there too, while the SELECT *'s level index asks for host codes first
+    (Arrow's encoder).  The answers are the host route's."""
+    t1, t2 = _table(rng, 3_000), _table(rng, 4_000)
+    want, _, _ = _answers("cpu", t1, t2, query)
+    with mock.patch.dict(os.environ, {"SEQUILA_HOST_THRESHOLD": "0"}):
+        ctx = SessionContext(device="cpu")
+        ctx.register_table("s1", t1)
+        ctx.register_table("s2", t2)
+        with metrics.recording() as rec:
+            got = _rows(ctx, query)
+    assert got == want
+    names = {s.name for s in rec.events().spans}
+    assert rec.counts()["view_device_builds"] == 4
+    assert dict_span in names and "table.view_host" not in names
+    assert rec.counts()["dict_device_builds"] == (2 if dict_span == "table.dict_device" else 0)
 
 
 @pytest.mark.cuda
 def test_fresh_table_views_on_the_card(rng, monkeypatch):
     """On the card: a fresh s2 against a warm s1 builds s2's two views there
     and the count is the reference's; a repeated query builds none; the
-    readers of the lazy host twins and order (the stream count, the device
-    SELECT *) and the per-probe and verb plans (the inverse orders) answer
-    as the CPU session's host build, each on a fresh s2."""
+    reader of the lazy host twins (the stream count), the device SELECT *
+    (the orders) and the per-probe and verb plans (the inverse orders)
+    answer as the CPU session, each on a fresh s2."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card: python -m pytest -m cuda)")
     monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "0")
