@@ -193,8 +193,8 @@ def _eval_as_i32(expr: PhysicalExpr, table: Table) -> np.ndarray:
     """Evaluate an interval-bound expression and cast to i32, hard-erroring
     on overflow — the reference's evaluate_as_i32 contract
     (interval_join.rs:1661-1672)."""
-    from sequila_tpu_torch.errors import CastOverflowError, ExecutionError
-    from sequila_tpu_torch.models.table import I32_MAX, I32_MIN
+    from sequila_tpu_torch.errors import ExecutionError
+    from sequila_tpu_torch.models.table import host_i32
     from sequila_tpu_torch.planner.expr import Column
 
     if isinstance(expr, Column):
@@ -202,22 +202,12 @@ def _eval_as_i32(expr: PhysicalExpr, table: Table) -> np.ndarray:
         return table.column_as_i32(expr.index)
     cols = [table.column_np(i) for i in range(len(table.column_names))]
     arr = np.asarray(expr.eval(cols, table.num_rows))
-    if arr.dtype == np.int32:
-        return arr
-    if not (
-        np.issubdtype(arr.dtype, np.integer) or np.issubdtype(arr.dtype, np.floating)
-    ):
-        raise ExecutionError(f"interval bound column has non-numeric type {arr.dtype}")
     if np.issubdtype(arr.dtype, np.floating) and np.isnan(arr).any():
         raise ExecutionError(
             "interval bound expression produced NULLs (bounds must be "
             "non-null; filter them out first)"
         )
-    a64 = arr.astype(np.int64, copy=False)
-    if len(a64) and (a64.min() < I32_MIN or a64.max() > I32_MAX):
-        bad = a64[(a64 < I32_MIN) | (a64 > I32_MAX)][0]
-        raise CastOverflowError(f"Can't cast value {bad} to type Int32")
-    return a64.astype(np.int32)
+    return host_i32(arr)
 
 
 class IntervalJoinExec(ExecPlan):

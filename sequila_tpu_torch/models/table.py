@@ -61,6 +61,43 @@ def build_sorted_view(codes: torch.Tensor, vals: torch.Tensor, keys=None):
     return keys, values, n, order.to(torch.int32)
 
 
+def _check_no_nulls(col: pa.ChunkedArray) -> None:
+    """The bound columns' NULL contract (Arrow's null count, no pass)."""
+    if col.null_count:
+        raise ExecutionError(
+            "interval bound column contains NULLs (bounds must be "
+            "non-null; filter them out first)"
+        )
+
+
+def _cast_overflow(bad) -> CastOverflowError:
+    """The error of a bound value outside i32 (the reference's message)."""
+    return CastOverflowError(f"Can't cast value {bad} to type Int32")
+
+
+def narrow_i32(t: torch.Tensor) -> torch.Tensor:
+    """A signed integer tensor as int32 on its device: the one range check
+    of the bound contract.  An int64 tensor's range is checked first by one
+    ``aminmax`` read back; a value outside i32 raises CastOverflowError,
+    naming the first such value in row order."""
+    if t.dtype == torch.int64 and t.numel():
+        lo, hi = to_host(torch.stack(torch.aminmax(t))).tolist()
+        if lo < I32_MIN or hi > I32_MAX:
+            raise _cast_overflow(to_host(t[(t < I32_MIN) | (t > I32_MAX)][0]))
+    return t.to(torch.int32)
+
+
+def host_i32(arr: np.ndarray) -> np.ndarray:
+    """A host array of bound values as int32 under ``narrow_i32``'s
+    contract: int32 as it is, any other integer or floating type through
+    int64 (floats truncate), any other type an ExecutionError."""
+    if arr.dtype == np.int32:
+        return arr
+    if not (np.issubdtype(arr.dtype, np.integer) or np.issubdtype(arr.dtype, np.floating)):
+        raise ExecutionError(f"interval bound column has non-numeric type {arr.dtype}")
+    return narrow_i32(torch.tensor(arr.astype(np.int64, copy=False))).numpy()
+
+
 def view_key_extrema(keys: torch.Tensor, values: torch.Tensor, n: int, k: int):
     """[2, k] int64 tensor on the view's device: each code's least value
     (row 0) and greatest (row 1) in a sorted view, its segment's first
@@ -338,10 +375,29 @@ class Table:
         )
 
     def device_i32(self, name_or_idx, device):
-        """Column as an int32 tensor on ``device`` (overflow-checked once)."""
+        """Column as an int32 tensor on ``device``, overflow-checked once,
+        cached.
+
+        The contract is ``column_as_i32``'s, and NULLs raise before any
+        upload.  A signed integer column is uploaded as Arrow holds it (a
+        zero-copy view of one chunk; several are combined on the host) and
+        narrowed on ``device`` (``narrow_i32``; span ``table.column_device``,
+        and counter ``i32_device_narrowings`` unless it is int32 already).
+        Every other type (unsigned, floating, decimal), and a column a host
+        reader has already narrowed, is uploaded from the host's
+        ``column_as_i32``."""
         key = (name_or_idx, _device_key(device))
         if key not in self._dev_i32:
-            self._dev_i32[key] = to_device(self.column_as_i32(name_or_idx), device)
+            col = self._t.column(name_or_idx)
+            _check_no_nulls(col)
+            if pa.types.is_signed_integer(col.type) and name_or_idx not in self._i32:
+                with span("table.column_device", rows=self.num_rows):
+                    out = narrow_i32(to_device(col.to_numpy(zero_copy_only=False), device))
+                if not pa.types.is_int32(col.type):
+                    count("i32_device_narrowings")
+            else:
+                out = to_device(self.column_as_i32(name_or_idx), device)
+            self._dev_i32[key] = out
         return self._dev_i32[key]
 
     def dict_codes(self, name_or_idx, device=None):
@@ -819,28 +875,8 @@ class Table:
         return self._i32[key]
 
     def _column_as_i32_uncached(self, name_or_idx) -> np.ndarray:
-        col = self._t.column(name_or_idx)
-        if col.null_count:
-            raise ExecutionError(
-                "interval bound column contains NULLs (bounds must be "
-                "non-null; filter them out first)"
-            )
-        arr = self.column_np(name_or_idx)
-        if arr.dtype == np.int32:
-            return arr
-        if not np.issubdtype(arr.dtype, np.integer) and not np.issubdtype(
-            arr.dtype, np.floating
-        ):
-            raise ExecutionError(
-                f"interval bound column has non-numeric type {arr.dtype}"
-            )
-        a64 = arr.astype(np.int64)
-        if ((a64 < I32_MIN) | (a64 > I32_MAX)).any():
-            bad = a64[(a64 < I32_MIN) | (a64 > I32_MAX)][0]
-            raise CastOverflowError(
-                f"Can't cast value {bad} to type Int32"
-            )
-        return a64.astype(np.int32)
+        _check_no_nulls(self._t.column(name_or_idx))
+        return host_i32(self.column_np(name_or_idx))
 
 
 def encode_join_keys(left, right) -> tuple[np.ndarray, np.ndarray, int]:

@@ -186,3 +186,135 @@ def test_table_views_on_card_path(rng, n):
             tt.sorted_interval_view(0, col, "cpu")
             tt.per_key_minmax(0, col, "cpu")
     assert again.counts()["view_device_builds"] == 0
+
+
+# -- a bound column narrowed to int32 on the device (device_i32) -------------
+
+
+def _bound_values(rng, dtype, n=5_000):
+    """``n`` values of ``dtype`` in the i32 range, its ends among them."""
+    if dtype == "float64":
+        return rng.uniform(-1e9, 1e9, n)
+    if dtype == "uint32":
+        return rng.integers(0, I32_MAX, n, dtype=np.uint32)
+    info = np.iinfo(dtype)
+    lo, hi = max(info.min, I32_MIN), min(info.max, I32_MAX)
+    vals = rng.integers(lo, hi, n, dtype=dtype, endpoint=True)
+    vals[:2] = lo, hi
+    return vals
+
+
+def _bound_table(vals, shape):
+    """A one-column arrow table of ``vals``: whole, a window at a non-zero
+    offset whose parent holds values outside i32 (int64) beyond the window,
+    or three chunks, one empty."""
+    col = pa.array(vals)
+    if shape == "sliced":
+        pad = pa.array(np.full(7, 2**40 if vals.dtype == np.int64 else 0, vals.dtype))
+        return pa.table({"x": pa.concat_arrays([pad, col, pad])}).slice(7, len(vals))
+    if shape == "chunks":
+        col = pa.chunked_array([col.slice(0, 3_500), col.slice(3_500, 0), col.slice(3_500)])
+    return pa.table({"x": col})
+
+
+@pytest.mark.parametrize("shape", ["whole", "sliced", "chunks"])
+@pytest.mark.parametrize("dtype", ["int64", "int32", "int16", "uint32", "float64"])
+def test_device_i32_is_the_host_narrowing(rng, dtype, shape):
+    """device_i32 equals the JAX package's column_as_i32, and the port's
+    own, for every type: the signed types narrowed on the device (one
+    ``table.column_device`` span each, ``i32_device_narrowings`` where a
+    cast narrows, no host narrowing), the others narrowed on the host and
+    uploaded."""
+    from sequila_tpu_torch.utils import metrics
+
+    at, c = _bound_table(_bound_values(rng, dtype), shape), 0
+    t = TorchTable(at)
+    signed = dtype in ("int64", "int32", "int16")
+    with metrics.recording() as rec:
+        got = t.device_i32(c, "cpu")
+        assert t.device_i32(c, "cpu") is got
+    names = [s.name for s in rec.events().spans]
+    assert rec.counts()["i32_device_narrowings"] == int(signed and dtype != "int32")
+    assert names.count("table.column_device") == int(signed)
+    assert ("table.column_i32" in names) == (not signed)
+    assert got.dtype == torch.int32 and got.device.type == "cpu"
+    want = JaxTable(at).column_as_i32(c)
+    assert want.dtype == np.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(t.column_as_i32(c), want)
+
+
+@pytest.mark.parametrize("shape", ["whole", "sliced", "chunks"])
+@pytest.mark.parametrize("bad", [2**31, -(2**31) - 1])
+@pytest.mark.parametrize("dtype", ["int64", "float64"])
+def test_device_i32_overflow_is_the_host_error(rng, dtype, bad, shape):
+    """A bound outside i32 raises the JAX package's CastOverflowError, with
+    its message, from the port's device and host narrowings alike, naming
+    the first such value in row order (a larger one of the other sign
+    follows it); int64 is narrowed on the device, float64 on the host."""
+    from sequila_tpu.errors import CastOverflowError as JaxCastOverflowError
+    from sequila_tpu_torch.errors import CastOverflowError
+
+    vals = _bound_values(rng, dtype)
+    vals[[3_000, 4_000]] = bad, -(2**40) * np.sign(bad)
+    at, c = _bound_table(vals, shape), 0
+    with pytest.raises(JaxCastOverflowError) as ref:
+        JaxTable(at).column_as_i32(c)
+    assert str(ref.value) == f"Can't cast value {bad} to type Int32"
+    for narrow in (lambda t: t.device_i32(c, "cpu"), lambda t: t.column_as_i32(c)):
+        with pytest.raises(CastOverflowError) as got:
+            narrow(TorchTable(at))
+        assert str(got.value) == str(ref.value)
+
+
+@pytest.mark.parametrize("dtype", ["int64", "int32"])
+def test_device_i32_null_bound_raises_before_any_upload(monkeypatch, dtype):
+    """A NULL bound raises the JAX package's ExecutionError message before
+    the port uploads anything."""
+    from sequila_tpu.errors import ExecutionError as JaxExecutionError
+    from sequila_tpu_torch.errors import ExecutionError
+    from sequila_tpu_torch.models import table as table_mod
+
+    def upload(*_):
+        raise AssertionError("uploaded a column with NULLs")
+
+    monkeypatch.setattr(table_mod, "to_device", upload)
+    at = pa.table({"x": pa.array([1, None, 3], getattr(pa, dtype)())})
+    with pytest.raises(JaxExecutionError) as ref:
+        JaxTable(at).column_as_i32(0)
+    with pytest.raises(ExecutionError, match="contains NULLs") as got:
+        TorchTable(at).device_i32(0, "cpu")
+    assert str(got.value) == str(ref.value)
+
+
+def test_i32_device_narrowings_count_int64_columns_once(rng):
+    """One count per int64 column narrowed, none for an int32 column or a
+    cached one; a host reader narrows on the host, in its own cache."""
+    from sequila_tpu_torch.utils import metrics
+
+    s = rng.integers(0, 1_000, 50)
+    t = TorchTable(pa.table({"s": s, "e": s + 5, "s32": s.astype(np.int32)}))
+    with metrics.recording() as rec:
+        for col in ("s", "e", "s32", "s", "e"):
+            t.device_i32(col, "cpu")
+    assert rec.counts()["i32_device_narrowings"] == 2
+    with metrics.recording() as host:
+        np.testing.assert_array_equal(t.column_as_i32("s"), s)
+    assert host.counts()["i32_device_narrowings"] == 0
+    assert [sp.name for sp in host.events().spans] == ["table.column_i32"]
+
+
+def test_device_i32_uploads_a_host_narrowed_column(rng):
+    """A column a host reader has narrowed already is uploaded as its int32
+    array: no second narrowing, on the device or the host."""
+    from sequila_tpu_torch.utils import metrics
+
+    s = rng.integers(-(2**31), 2**31, 1_000)
+    t = TorchTable(pa.table({"s": s}))
+    host = t.column_as_i32("s")
+    with metrics.recording() as rec:
+        got = t.device_i32("s", "cpu")
+    assert rec.counts()["i32_device_narrowings"] == 0
+    assert not {"table.column_device", "table.column_i32"} & {sp.name for sp in rec.events().spans}
+    np.testing.assert_array_equal(got.numpy(), host)
+    np.testing.assert_array_equal(host, JaxTable(pa.table({"s": s})).column_as_i32("s"))

@@ -158,7 +158,7 @@ def test_warm_count_records_views_only_on_its_first_query(session):
     with metrics.recording() as first:
         a = session.sql(COUNT).to_pylist()
     views = [s for s in first.events().spans if s.name.startswith("table.")]
-    assert {"table.dict_device", "table.column_i32", "table.min_gap", "table.view_sort",
+    assert {"table.dict_device", "table.column_device", "table.min_gap", "table.view_sort",
             "table.key_minmax"} <= {s.name for s in views}
     assert all(s.attrs["rows"] in (3_000, 4_000) for s in views)
     assert "join.plan" in {s.name for s in first.events().spans}
@@ -182,9 +182,12 @@ def test_timer_is_a_span_and_keeps_its_time():
 def test_verb_route_in_last_metrics_and_explain(session):
     with metrics.recording() as rec:
         session.sql("SELECT * FROM coverage('s2', 's1')")
-    # the first query codes both key columns and builds both tables' two views
+    # the first query codes both key columns, narrows the int64 bounds the
+    # views read by index on the device (the verb's by-name reads upload its
+    # host narrowing) and builds both tables' two views
     assert session.last_metrics.counters[metrics.PROGRAM] == {
-        "verb_route_merge": 1, "dict_device_builds": 2, "view_device_builds": 4}
+        "verb_route_merge": 1, "dict_device_builds": 2, "view_device_builds": 4,
+        "i32_device_narrowings": 4}
     names = [s.name for s in rec.events().spans]
     assert {"verb.coverage", "verb.assemble"} <= set(names)
     assert rec.counts()["verb_route_merge"] == 1

@@ -105,7 +105,10 @@ def test_cpu_session_builds_its_views_on_the_cpu(rng, query, dict_span):
     the CPU by the card's build and copies none back (the device SELECT *
     reads the orders on the device); the count codes both key columns
     there too, while the SELECT *'s level index asks for host codes first
-    (Arrow's encoder).  The answers are the host route's."""
+    (Arrow's encoder).  The count narrows every int64 bound column on the
+    CPU as on a card, a fresh s2 its two, and none on the host; the SELECT
+    *'s level index narrows them on the host first, and the views upload
+    that narrowing.  The answers are the host route's."""
     t1, t2 = _table(rng, 3_000), _table(rng, 4_000)
     want, _, _ = _answers("cpu", t1, t2, query)
     with mock.patch.dict(os.environ, {"SEQUILA_HOST_THRESHOLD": "0"}):
@@ -114,11 +117,23 @@ def test_cpu_session_builds_its_views_on_the_cpu(rng, query, dict_span):
         ctx.register_table("s2", t2)
         with metrics.recording() as rec:
             got = _rows(ctx, query)
+        ctx.register_table("s2", t2)  # a fresh Table: no cached column
+        with metrics.recording() as fresh:
+            assert _rows(ctx, query) == want
+        with metrics.recording() as again:
+            assert _rows(ctx, query) == want
     assert got == want
     names = {s.name for s in rec.events().spans}
     assert rec.counts()["view_device_builds"] == 4
     assert dict_span in names and "table.view_host" not in names
     assert rec.counts()["dict_device_builds"] == (2 if dict_span == "table.dict_device" else 0)
+    on_device = query == COUNT
+    assert rec.counts()["i32_device_narrowings"] == 4 * on_device
+    assert fresh.counts()["i32_device_narrowings"] == 2 * on_device
+    assert again.counts()["i32_device_narrowings"] == 0
+    fresh_names = {s.name for s in fresh.events().spans}
+    assert ("table.column_device" in fresh_names) == on_device
+    assert ("table.column_i32" in fresh_names) == (not on_device)  # the level index
 
 
 @pytest.mark.cuda
@@ -150,9 +165,13 @@ def test_fresh_table_views_on_the_card(rng, monkeypatch):
     assert _route(card) == ["count_route_merge"]
     assert got == [(_reference_count(s1, s2),)] == _rows(cpu, COUNT)
     assert first.counts()["view_device_builds"] == 2
+    # s2's int64 bounds uploaded as they are and narrowed on the card
+    assert first.counts()["i32_device_narrowings"] == 2
+    assert "table.column_i32" not in {s.name for s in first.events().spans}
     with metrics.recording() as again:
         assert _rows(card, COUNT) == got
     assert again.counts()["view_device_builds"] == 0
+    assert again.counts()["i32_device_narrowings"] == 0
     for query, env in ((COUNT, {"SEQUILA_COUNT_BACKEND": "stream"}), (SELECT, {}),
                        (GROUPED, {}), (COVERAGE, {})):
         for k, v in env.items():
@@ -165,3 +184,39 @@ def test_fresh_table_views_on_the_card(rng, monkeypatch):
         assert _route(card) == _route(cpu), query
         for k in env:
             monkeypatch.delenv(k)
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("bad", [2**31, -(2**31) - 1])
+def test_bound_contract_on_the_device(rng, monkeypatch, device, bad):
+    """The reference's evaluate_as_i32 contract where a fresh s2's int64
+    bounds are narrowed on the session's device: a value outside i32
+    raises the host narrowing's CastOverflowError, naming the first such
+    value in row order, and a NULL bound raises ExecutionError."""
+    from sequila_tpu_torch.errors import CastOverflowError, ExecutionError
+    from sequila_tpu_torch.models.table import Table
+
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: python -m pytest -m cuda)")
+    monkeypatch.setenv("SEQUILA_HOST_THRESHOLD", "0")
+    t2 = _table(rng, 4_000)
+    ends = t2.column("pos_end").to_numpy().copy()
+    ends[[1_000, 3_000]] = bad, -(2**40) * np.sign(bad)
+    over = t2.set_column(2, "pos_end", pa.array(ends))
+    msg = f"^Can't cast value {bad} to type Int32$"
+    with pytest.raises(CastOverflowError, match=msg):
+        Table(over).column_as_i32("pos_end")
+    s1 = _table(rng, 3_000)
+    ctx = SessionContext(device=device)
+    ctx.register_table("s1", s1)
+    ctx.register_table("s2", over)
+    with pytest.raises(CastOverflowError, match=msg):
+        ctx.sql(COUNT)
+    with pytest.raises(CastOverflowError, match=msg):
+        Table(over).device_i32("pos_end", device)
+    starts = pa.array(t2.column("pos_start").to_pylist()[:-1] + [None], pa.int64())
+    ctx.register_table("s2", t2.set_column(1, "pos_start", starts))
+    with pytest.raises(ExecutionError, match="contains NULLs"):
+        ctx.sql(COUNT)
+    ctx.register_table("s2", t2)
+    assert _rows(ctx, COUNT) == [(_reference_count(s1, t2),)]
